@@ -1,0 +1,294 @@
+"""Smoke run of the PyTorch/CUDA port (lightpycl_tpu_torch) on one NVIDIA GPU.
+
+Run from the repository root:  python3 chip_smoke.py
+
+It builds the port's CUDA kernel from csrc/, drives the tracer's main path
+(Tracer.trace in device and host mode) at the sizes the repository's bench
+uses, holds the kernel against its plain torch version, and checks the
+physics (power ledger, detected power, repeatability). Any failed check
+raises, so the script exits non-zero and prints no result. Without a CUDA
+device it exits non-zero at once. It imports nothing of JAX.
+
+Output: one line per phase; then the kernel table as JSON, the card's
+`nvidia-smi` name and power limit, and last
+{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+BENCH_RAYS = 1 << 19      # 524,288 rays (bench.py)
+CMP_RAYS = 1 << 16        # 65,536 rays: kernel vs plain comparisons
+KERNEL_SRC = "lightpycl_tpu_torch/csrc/intersect.cu"
+TPU_KERNEL = "lightpycl_tpu/ops/intersect_pallas.py"
+
+
+def check(cond, what):
+    if not cond:
+        raise AssertionError(f"check failed: {what}")
+
+
+def line(phase, **numbers):
+    print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in numbers.items()),
+          flush=True)
+
+
+def run(cmd):
+    return subprocess.run(cmd, capture_output=True, text=True,
+                          check=True).stdout.strip()
+
+
+def cuda_ms(fn, reps=3):
+    """Median wall of `reps` calls of fn on the card (CUDA events), after
+    one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def bench_rays(n, seed=0):
+    """The bench's intersect rays (bench.py): origins in the unit cube,
+    isotropic directions."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda()
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+
+    import lightpycl_tpu_torch as P
+    from lightpycl_tpu_torch.ops import _build
+    from lightpycl_tpu_torch.ops import intersect as PI
+    from lightpycl_tpu_torch.tracer import step as S
+
+    kind = torch.cuda.get_device_name(0)
+    smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()[0]
+    nvcc = run([_build.nvcc_path(), "--version"]).splitlines()[-1]
+    line("1 env", card=repr(smi), torch=torch.__version__,
+         cuda=torch.version.cuda, nvcc=repr(nvcc))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # ---- 2. build the kernel from the checkout's sources ------------------
+    t0 = time.perf_counter()
+    PI.load_kernel()
+    build_s = time.perf_counter() - t0
+    line("2 build", seconds=f"{build_s:.3f}",
+         library=_build.library_path("intersect.cu", dict(PI._DEFINES)).name)
+
+    # ---- 3. B1 kernel vs plain at the bench's intersect shape -------------
+    big = P.optical_elements(256, 256).sphere(5.0, material="terminator",
+                                              name="bigmesh")
+    scene, _ = P.build_scene([big], device="cuda")
+    n_tris = big.num_triangles
+    o, d = bench_rays(BENCH_RAYS)
+    args = (scene.wu, scene.wv, scene.ww, 1e-4, 1e-6, 1e3)
+    t_k, i_k = PI.nearest_hit_cuda(o[:CMP_RAYS], d[:CMP_RAYS], *args)
+    t_p, i_p = PI.nearest_hit_torch(o[:CMP_RAYS], d[:CMP_RAYS], *args)
+    torch.cuda.synchronize()
+    n_idx = int((i_k != i_p).sum())
+    n_bits = int((t_k.view(torch.int32) != t_p.view(torch.int32)).sum())
+    fin = torch.isfinite(t_p)
+    b1_err = float((t_k[fin] - t_p[fin]).abs().max())
+    line("3 B1 compare", rays=CMP_RAYS, triangles=n_tris,
+         hits=int((i_k >= 0).sum()), tri_mismatch=n_idx,
+         t_bit_mismatch=n_bits, max_abs_err=b1_err)
+    check(n_idx == 0, "B1 tri identical to the plain version")
+    check(n_bits == 0, "B1 t bitwise equal to the plain version")
+    b1_ms = cuda_ms(lambda: PI.nearest_hit_cuda(o, d, *args))
+    b1_plain_ms = cuda_ms(lambda: PI.nearest_hit_torch(
+        o[:CMP_RAYS], d[:CMP_RAYS], *args))
+    line("3 B1 time", kernel_ms=b1_ms, kernel_rays=BENCH_RAYS,
+         kernel_tests_per_s=f"{BENCH_RAYS * n_tris / b1_ms * 1e3:.4e}",
+         plain_ms=b1_plain_ms, plain_rays=CMP_RAYS,
+         plain_tests_per_s=f"{CMP_RAYS * n_tris / b1_plain_ms * 1e3:.4e}")
+    del o, d
+
+    # ---- scenes of the main path (bench.py configs) ------------------------
+    oe2 = P.optical_elements(n_segments=128, n_radial=32)
+    cfg1_els = [oe2.parabolic_mirror(0.5, 2.0, reflectivity=0.98),
+                oe2.hemisphere(30.0, name="dome")]
+
+    def cfg1_src(n):
+        return P.light_source(center=(0, 0, 0.5), direction=(0, 0, -1),
+                              power=1.0, ray_count=n, seed=7)
+
+    oe_b = P.optical_elements(n_segments=256, n_radial=128)
+    bowl = [oe_b.parabolic_mirror(focus=1.0, diameter=4.0,
+                                  reflectivity=0.95),
+            oe2.hemisphere(radius=100.0, name="dome")]
+    bowl_src = P.CollimatedSource(center=(0, 0, 3.0), direction=(0, 0, -1),
+                                  diameter=3.5, ray_count=BENCH_RAYS,
+                                  power=1.0, seed=3)
+    oe3 = P.optical_elements(n_segments=32, n_radial=12)
+    cfg3_els = [oe3.biconvex_lens(1.0, 0.8, 0.2, ior=1.5),
+                oe3.biconvex_lens(1.5, 0.8, 0.15, ior=1.7).translate(
+                    (0, 0, 0.5)),
+                oe3.sphere(radius=6.0, material="measure", name="enclosure")]
+    cfg3_src = P.CollimatedSource(center=(0, 0, -0.5), direction=(0, 0, 1),
+                                  diameter=0.5, ray_count=CMP_RAYS,
+                                  power=1.0, seed=23)
+
+    # ---- the main path, counted: the kernel must carry it -----------------
+    PI.nearest_hit_cuda.launches = 0
+    PI.nearest_hit_cuda.cull_launches = 0
+    res1 = P.Tracer().trace(cfg1_src(BENCH_RAYS), cfg1_els,
+                            trace_iterations=8, mode="device")
+    tr_b = P.Tracer()
+    res_cull = tr_b.trace(bowl_src, bowl, trace_iterations=6, mode="device")
+    res3 = P.Tracer().trace(cfg3_src, cfg3_els, trace_iterations=5,
+                            capacity=4 * CMP_RAYS, mode="host")
+    torch.cuda.synchronize()
+    launches = PI.nearest_hit_cuda.launches
+    cull_launches = PI.nearest_hit_cuda.cull_launches
+    check(tr_b._scene_sorted, "auto-cull turned on for the collimated bowl")
+
+    # ---- 4. config 1 ------------------------------------------------------
+    emitted = res1.ledger["emitted"]
+    check(res1.power_conservation_error() <= 1e-5, "config 1 ledger closes")
+    check(abs(res1.ledger["measured"] - 0.98) <= 5e-3,
+          "config 1 detects the mirror's 0.98")
+    check(np.isfinite(res1.hist).all() and res1.hist.shape == (36, 18),
+          "config 1 histogram finite, (36, 18)")
+    rates = []
+    for _ in range(3):
+        again = P.Tracer().trace(cfg1_src(BENCH_RAYS), cfg1_els,
+                                 trace_iterations=8, mode="device")
+        check(np.array_equal(again.hist, res1.hist)
+              and np.array_equal(again.per_detector, res1.per_detector)
+              and again.ledger == res1.ledger,
+              "config 1 repeat run bit-identical")
+        rates.append(again.rays_traced / max(again.iterations_run, 1)
+                     / max(again.wall_time, 1e-12))
+    small = {b: P.Tracer().trace(cfg1_src(CMP_RAYS), cfg1_els,
+                                 trace_iterations=8, mode="device",
+                                 backend=b) for b in ("cuda", "torch")}
+    check(small["cuda"].ledger == small["torch"].ledger
+          and np.array_equal(small["cuda"].hist, small["torch"].hist),
+          "config 1 kernel ledger equal to backend='torch'")
+    line("4 config1", rays=BENCH_RAYS, iterations=res1.iterations_run,
+         measured=res1.ledger["measured"], emitted=emitted,
+         conservation_err=res1.power_conservation_error(),
+         first_wall_s=res1.wall_time,
+         rays_per_sec_full_trace=f"{max(rates):.6e}",
+         rates=",".join(f"{r:.4e}" for r in rates))
+
+    # ---- 5. config 3: splitting + top-k, host mode -------------------------
+    check(res3.power_conservation_error() <= 1e-5, "config 3 ledger closes")
+    plain3 = P.Tracer().trace(cfg3_src, cfg3_els, trace_iterations=5,
+                              capacity=4 * CMP_RAYS, mode="host",
+                              backend="torch")
+    check(res3.ledger == plain3.ledger
+          and np.array_equal(res3.hist, plain3.hist)
+          and np.array_equal(res3.measured_pos, plain3.measured_pos),
+          "config 3 kernel equal to backend='torch'")
+    line("5 config3", rays=CMP_RAYS, capacity=4 * CMP_RAYS,
+         iterations=res3.iterations_run, measured=res3.ledger["measured"],
+         culled=res3.ledger["culled"], measured_rays=len(res3.measured_power),
+         conservation_err=res3.power_conservation_error(),
+         wall_s=res3.wall_time, plain_wall_s=plain3.wall_time)
+
+    # ---- 6. B2: cull vs brute on the coherent bowl -------------------------
+    res_brute = P.Tracer().trace(bowl_src, bowl, trace_iterations=6,
+                                 mode="device", cull=False)
+    for k, v in res_brute.ledger.items():
+        check(abs(res_cull.ledger[k] - v) <= 1e-6 * max(abs(v), emitted),
+              f"bowl ledger[{k}] cull vs brute to 1e-6")
+    walls = {True: [res_cull.wall_time], False: [res_brute.wall_time]}
+    for cull in (False, True, True, False):
+        walls[cull].append(P.Tracer().trace(
+            bowl_src, bowl, trace_iterations=6, mode="device",
+            cull=cull).wall_time)
+    # first bounce, per ray, after undoing the Morton permutation
+    scene_b = tr_b.scene
+    rays = P.RayBatch.from_arrays(*bowl_src.sample(), device="cuda")
+    order = S.morton_permutation(scene_b, rays)
+    srt = rays.permuted(order)
+    cfg_c = P.TraceConfig(cull=True)
+    t_c, i_c = PI.intersect(scene_b, srt.o, srt.d, cfg_c, alive=srt.alive)
+    t_b, i_b = PI.intersect(scene_b, rays.o, rays.d,
+                            cfg_c.replace(cull=False))
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(len(order), device=order.device)
+    check(torch.equal(i_c[inv], i_b) and torch.equal(t_c[inv], t_b),
+          "bowl first bounce: culled (t, tri) == brute per ray")
+    # B2 vs its plain version (same mask) on the first 32 ray blocks
+    nb = 32 * PI.RAY_BLOCK
+    bargs = (scene_b.wu, scene_b.wv, scene_b.ww, 1e-4, 1e-6, 1e3)
+    mask = PI.block_tile_mask(scene_b, srt.o[:nb], srt.d[:nb], 1e3,
+                              alive=srt.alive[:nb])
+    t2k, i2k = PI.nearest_hit_cuda(srt.o[:nb], srt.d[:nb], *bargs, mask=mask)
+    t2p, i2p = PI.nearest_hit_torch(srt.o[:nb], srt.d[:nb], *bargs,
+                                    mask=mask)
+    torch.cuda.synchronize()
+    check(torch.equal(i2k, i2p) and torch.equal(t2k, t2p),
+          "B2 bitwise equal to its plain version")
+    fin = torch.isfinite(t2p)
+    b2_err = float((t2k[fin] - t2p[fin]).abs().max()) if fin.any() else 0.0
+    full_mask = PI.block_tile_mask(scene_b, srt.o, srt.d, 1e3,
+                                   alive=srt.alive)
+    kept = float(torch.cat([((full_mask >> k) & 1) for k in range(32)])
+                 .sum()) / (-(-BENCH_RAYS // PI.RAY_BLOCK)
+                            * -(-scene_b.num_triangles_padded // PI.TRI_TILE))
+    b2_ms = cuda_ms(lambda: PI.nearest_hit_cuda(srt.o, srt.d, *bargs,
+                                                mask=full_mask))
+    b2_brute_ms = cuda_ms(lambda: PI.nearest_hit_cuda(srt.o, srt.d, *bargs))
+    b2_plain_ms = cuda_ms(lambda: PI.nearest_hit_torch(
+        srt.o[:nb], srt.d[:nb], *bargs, mask=mask), reps=1)
+    line("6 bowl cull", rays=BENCH_RAYS, triangles=scene_b.num_triangles_padded,
+         iterations=res_cull.iterations_run,
+         measured=res_cull.ledger["measured"],
+         wall_brute_s=min(walls[False]), wall_cull_s=min(walls[True]),
+         cull_speedup=f"{min(walls[False]) / min(walls[True]):.4f}",
+         pairs_kept=f"{kept:.4f}",
+         b2_first_bounce_ms=b2_ms, b1_first_bounce_ms=b2_brute_ms,
+         b2_plain_ms=b2_plain_ms, b2_plain_rays=nb)
+
+    # ---- 7. the main path went through the kernel --------------------------
+    line("7 kernel use", launches=launches, cull_launches=cull_launches)
+    check(launches - cull_launches > 0, "brute kernel launched on the path")
+    check(cull_launches > 0, "cull kernel launched on the path")
+
+    table = {"kernels": [
+        {"name": "nearest_hit (B1, brute)", "route": "cuda",
+         "source": KERNEL_SRC, "replaces": f"{TPU_KERNEL}:154",
+         "launches": launches - cull_launches, "max_abs_err": b1_err,
+         "ms": b1_ms, "plain_ms": b1_plain_ms,
+         "rays": BENCH_RAYS, "plain_rays": CMP_RAYS, "triangles": n_tris},
+        {"name": "nearest_hit (B2, cull)", "route": "cuda",
+         "source": KERNEL_SRC, "replaces": f"{TPU_KERNEL}:185",
+         "launches": cull_launches, "max_abs_err": b2_err,
+         "ms": b2_ms, "plain_ms": b2_plain_ms,
+         "rays": BENCH_RAYS, "plain_rays": nb,
+         "triangles": scene_b.num_triangles_padded},
+    ]}
+    print(json.dumps(table))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

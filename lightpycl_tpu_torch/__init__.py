@@ -1,0 +1,51 @@
+"""lightpycl_tpu_torch — the geometric-optics ray tracer on PyTorch + CUDA.
+
+A port of lightpycl_tpu (JAX/XLA/Pallas, the reference, which stays in the
+repository unchanged) to PyTorch on an NVIDIA Hopper GPU. The module layout
+mirrors the reference file for file and each module's docstring names its
+counterpart. The ray x triangle nearest-hit kernel is hand-written CUDA C++
+(csrc/intersect.cu, built with nvcc at first use); everything else is plain
+torch. Importing this package needs neither jax nor lightpycl_tpu, and
+builds nothing.
+
+First slice: the single-device trace (`Tracer.trace(mode="host" |
+"device")` and the `CL_Tracer.iterative_tracer` facade) with the core
+material model; unported features raise NotImplementedError (ROADMAP.md).
+"""
+
+from lightpycl_tpu_torch.materials import Material, glass
+from lightpycl_tpu_torch.geometry.mesh import (GeoObject, instance_grid,
+                                               instances, merge)
+from lightpycl_tpu_torch.geometry.primitives import (OpticalElements,
+                                                     optical_elements)
+from lightpycl_tpu_torch.sources import (AreaSource, CollimatedSource,
+                                         LightSource, light_source)
+from lightpycl_tpu_torch.tracer.config import TraceConfig
+from lightpycl_tpu_torch.tracer.scene import Scene, build_scene
+from lightpycl_tpu_torch.tracer.rays import RayBatch
+from lightpycl_tpu_torch.tracer.engine import Tracer, TraceResult
+from lightpycl_tpu_torch.compat import CL_Tracer
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "Material",
+    "glass",
+    "GeoObject",
+    "merge",
+    "instances",
+    "instance_grid",
+    "OpticalElements",
+    "optical_elements",
+    "AreaSource",
+    "CollimatedSource",
+    "LightSource",
+    "light_source",
+    "TraceConfig",
+    "Scene",
+    "build_scene",
+    "RayBatch",
+    "Tracer",
+    "TraceResult",
+    "CL_Tracer",
+]

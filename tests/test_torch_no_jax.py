@@ -1,0 +1,80 @@
+"""lightpycl_tpu_torch must import and trace where jax does not exist (the
+GPU machine has no jax): a subprocess blocks every jax import with a
+sys.meta_path finder, imports the port, traces a tiny scene on the CPU,
+and checks that neither jax nor the JAX package was ever loaded."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = textwrap.dedent("""
+    import sys
+
+    class BlockJax:
+        def find_spec(self, name, path=None, target=None):
+            if name in ("jax", "jaxlib") or name.startswith(("jax.",
+                                                             "jaxlib.")):
+                raise ImportError(f"blocked: {name}")
+            return None
+
+    sys.meta_path.insert(0, BlockJax())
+    try:
+        import jax  # noqa: F401
+    except ImportError:
+        pass
+    else:
+        raise SystemExit("the jax blocker did not block")
+
+    import torch
+    torch.set_num_threads(1)
+    import lightpycl_tpu_torch as P
+    from lightpycl_tpu_torch.compat import CL_Tracer
+
+    oe = P.optical_elements(16, 6)
+    els = [oe.parabolic_mirror(0.5, 2.0, reflectivity=0.9),
+           oe.hemisphere(10.0, name="dome")]
+    src = P.light_source(center=(0, 0, 0.5), direction=(0, 0, -1),
+                         ray_count=256, seed=1)
+    for mode in ("device", "host"):
+        res = P.Tracer(device="cpu").trace(src, els, trace_iterations=3,
+                                           mode=mode)
+        assert abs(res.ledger["measured"] - 0.9) < 1e-3, res.ledger
+    CL_Tracer(device="cpu").iterative_tracer(src, els, trace_iterations=3)
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "lightpycl_tpu"))
+    assert not leaked, leaked
+    print("NO_JAX_OK")
+""")
+
+
+def test_port_imports_and_traces_without_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "NO_JAX_OK" in proc.stdout
+
+
+def test_port_sources_do_not_import_jax():
+    # static guard beside the runtime one: no module of the port names jax
+    # or the JAX package in an import statement
+    pkg = os.path.join(REPO, "lightpycl_tpu_torch")
+    offenders = []
+    for root, dirs, files in os.walk(pkg):
+        dirs[:] = [d for d in dirs if d != "build"]  # kernel build output
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(root, f)
+            with open(path) as fh:
+                for n, line in enumerate(fh, 1):
+                    s = line.strip()
+                    if s.startswith(("import ", "from ")) and (
+                            s.split()[1].split(".")[0]
+                            in ("jax", "jaxlib", "lightpycl_tpu")):
+                        offenders.append(f"{path}:{n}: {s}")
+    assert not offenders, offenders

@@ -1,0 +1,299 @@
+"""The port's trace step (lightpycl_tpu_torch/tracer/step.py) against the
+JAX package's, stage by stage, on identical inputs: the same scene and
+rays (copied bit for bit with from_reference) and the same intersect
+result (t, tri) fed to both sides."""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import lightpycl_tpu as L
+import lightpycl_tpu_torch as P
+from lightpycl_tpu.sources import CollimatedSource, light_source
+from lightpycl_tpu.tracer import step as R
+from lightpycl_tpu.tracer.engine import Tracer as RefTracer
+from lightpycl_tpu.tracer.rays import DetectorState as RefDet
+from lightpycl_tpu.tracer.rays import Ledger as RefLedger
+from lightpycl_tpu_torch.tracer import step as S
+from lightpycl_tpu_torch.tracer.rays import DetectorState, Ledger, RayBatch
+from lightpycl_tpu_torch.tracer.scene import Scene
+
+torch.set_num_threads(1)
+CPU = torch.device("cpu")
+# 1e-6 absolute for unit-scale quantities; positions of missed rays are
+# drawn out to max_ray_len, where one f32 ulp exceeds 1e-6, hence the
+# relative term (about 8 ulps)
+ATOL = 1e-6
+RTOL = 1e-6
+
+# the reference stages, jitted as its engine runs them
+ref_intersect = jax.jit(R.intersect_jnp, static_argnames=("cfg",))
+ref_shade = jax.jit(R.shade, static_argnames=("cfg",))
+ref_accumulate = jax.jit(R.accumulate_detector, static_argnames=("cfg",))
+ref_compact = jax.jit(R.compact, static_argnames=("capacity", "cfg"))
+ref_step = functools.partial(R.trace_step_jit)
+
+oe = L.optical_elements(n_segments=32, n_radial=12)
+
+
+def config_scene(name):
+    """Configs 1-3 of tests/test_parity_oracle.py, plus every material of
+    the core model in one bench."""
+    if name == "config1":
+        els = [oe.parabolic_mirror(focus=0.5, diameter=2.0, reflectivity=0.92),
+               oe.hemisphere(radius=15.0, name="dome")]
+        src = light_source(center=(0, 0, 0.5), direction=(0, 0, -1),
+                           power=1.0, ray_count=3000, seed=21)
+        return els, src, None
+    if name == "config2":
+        els = [oe.plano_convex_lens(r=0.5, aperture=0.6, thickness=0.1,
+                                    ior=1.5),
+               oe.disc(radius=1.0, center=(0, 0, 1.1), material="measure"),
+               oe.sphere(radius=8.0, material="terminator", name="enclosure")]
+        src = CollimatedSource(center=(0, 0, -0.5), direction=(0, 0, 1),
+                               diameter=0.3, ray_count=2000, power=1.0,
+                               seed=22)
+        return els, src, 4096
+    if name == "config3":
+        els = [oe.biconvex_lens(1.0, 0.8, 0.2, ior=1.5),
+               oe.biconvex_lens(1.5, 0.8, 0.15, ior=1.7).translate((0, 0, 0.5)),
+               oe.sphere(radius=6.0, material="measure", name="enclosure")]
+        src = CollimatedSource(center=(0, 0, -0.5), direction=(0, 0, 1),
+                               diameter=0.5, ray_count=1000, power=1.0,
+                               seed=23)
+        return els, src, 2048
+    # materials: beamsplitter, absorbing dispersive glass (Cauchy B and C),
+    # mirror, terminator, polarizer (absorbed in the unpolarized model)
+    small = L.optical_elements(16, 6)
+    glass = small.biconvex_lens(1.0, 0.8, 0.3, ior=1.5, center=(0, 0, 1.0))
+    glass.dispersion_b, glass.dispersion_c, glass.absorption = 0.004, 1e-4, 0.7
+    bs = small.rectangle(1.0, 1.0, center=(0.8, 0, 0.6),
+                         material="beamsplitter", reflectivity=0.3)
+    pol = small.disc(0.3, center=(-0.8, 0, 0.8), material="polarizer",
+                     axis=(1.0, 0.0, 0.0))
+    els = [glass, bs, pol,
+           small.parabolic_mirror(0.5, 2.0, reflectivity=0.9),
+           small.cube(0.3, center=(0, 0.8, 0.8), material="terminator"),
+           small.hemisphere(5.0, name="dome")]
+    src = light_source(center=(0, 0, 0.3), direction=(0, 0, 1), power=1.0,
+                       ray_count=1500, seed=4, wavelength=0.48)
+    return els, src, 2048
+
+
+def core_cfg(els, **kw):
+    """The reference engine's cfg resolution, as both sides will run it."""
+    tr = RefTracer()
+    tr.set_elements(els)
+    cfg = tr._tune_splitting(L.TraceConfig(cull=False, **kw))
+    if any(e.material == L.Material.POLARIZER for e in els):
+        # direct step use of an unpolarized trace (the engine refuses it)
+        cfg = cfg.replace(has_gratings=False, has_coatings=False,
+                          has_metals=False)
+    else:
+        cfg = tr._check_polarization(cfg)
+    return cfg, P.TraceConfig(**dataclasses.asdict(cfg))
+
+
+def port_tuple(cls, ref):
+    """A port NamedTuple holding private copies of a reference one."""
+    return cls(*(None if a is None else torch.from_numpy(np.array(a))
+                 for a in ref))
+
+
+def setup(name, bounces=0, **kw):
+    els, src, cap = config_scene(name)
+    rcfg, pcfg = core_cfg(els, **kw)
+    rs, names = L.build_scene(els)
+    o, d, p = src.sample()
+    rays = L.RayBatch.from_arrays(o, d, p, capacity=cap,
+                                  wavelengths=src.sample_wavelengths())
+    det = RefDet.zeros(36, 18, max(len(names), 1),
+                       image_bins=kw.get("image_bins", 0))
+    led = RefLedger.start(1.0)
+    for _ in range(bounces):
+        rays, det, led, _ = ref_step(rs, rays, det, led, rcfg)
+    return rs, rays, rcfg, pcfg
+
+
+def assert_close_tuple(ref, port, atol=ATOL, rtol=RTOL):
+    for f in ref._fields:
+        a, b = getattr(ref, f), getattr(port, f)
+        if a is None:
+            continue
+        a, b = np.asarray(a), b.numpy()
+        assert a.shape == b.shape, f
+        if a.dtype == bool or np.issubdtype(a.dtype, np.integer):
+            assert np.array_equal(a, b), f
+        else:
+            assert np.allclose(a, b, rtol=rtol, atol=atol,
+                               equal_nan=True), f
+
+
+@pytest.mark.parametrize("name,bounces", [
+    ("config1", 0), ("config2", 0), ("config3", 0), ("config3", 1),
+    ("materials", 0), ("materials", 1)])
+def test_shade_matches_reference(name, bounces):
+    rs, rays, rcfg, pcfg = setup(name, bounces)
+    t, tri = ref_intersect(rs, rays.o, rays.d, rcfg)
+    ref = ref_shade(rs, rays, t, tri, rcfg)
+    port = S.shade(Scene.from_reference(rs, CPU),
+                   RayBatch.from_reference(rays, CPU),
+                   torch.from_numpy(np.array(t)),
+                   torch.from_numpy(np.array(tri)), pcfg)
+    assert_close_tuple(ref, port)
+    assert bool(port.child_alive.any() | port.measured.any())
+
+
+@pytest.mark.parametrize("name,hist_mode", [("config1", "position"),
+                                            ("config3", "direction")])
+def test_accumulate_detector_matches_reference(name, hist_mode):
+    rs, rays, rcfg, pcfg = setup(name, 1, hist_mode=hist_mode, image_bins=8,
+                                 image_center=(0.0, 0.0, 0.3),
+                                 image_halfwidth=4.0)
+    t, tri = ref_intersect(rs, rays.o, rays.d, rcfg)
+    sh = ref_shade(rs, rays, t, tri, rcfg)
+    det0 = RefDet.zeros(36, 18, 1, image_bins=8)
+    ref = ref_accumulate(det0, sh, rays, rcfg)
+    port = S.accumulate_detector(
+        DetectorState.zeros(36, 18, 1, image_bins=8, device=CPU),
+        port_tuple(S.ShadeOut, sh), RayBatch.from_reference(rays, CPU), pcfg)
+    for f in ("hist", "per_detector", "image"):
+        a, b = np.asarray(getattr(ref, f)), getattr(port, f).numpy()
+        assert np.allclose(a, b, rtol=1e-5, atol=ATOL), f
+    assert float(port.hist.sum()) > 0
+
+
+def compact_case(name, bounces):
+    rs, rays, rcfg, pcfg = setup(name, bounces)
+    t, tri = ref_intersect(rs, rays.o, rays.d, rcfg)
+    return ref_shade(rs, rays, t, tri, rcfg), rays.capacity, rcfg, pcfg
+
+
+def assert_same_live_children(ref_rays, port_rays):
+    ra = np.asarray(ref_rays.alive)
+    pa = port_rays.alive.numpy()
+    assert ra.sum() == pa.sum()
+
+    def rows(b, alive, lib):
+        cols = [np.asarray(getattr(b, f)).reshape(len(alive), -1)
+                if lib == "ref" else getattr(b, f).numpy().reshape(
+                    len(alive), -1)
+                for f in ("o", "d", "power", "ior", "absorb", "opl")]
+        m = np.concatenate(cols, axis=1)[alive]
+        return m[np.lexsort(m.T[::-1])]
+
+    assert np.array_equal(rows(ref_rays, ra, "ref"),
+                          rows(port_rays, pa, "port"))
+
+
+@pytest.mark.parametrize("mode,capacity", [
+    ("topk", None), ("topk", 700), ("stream", None), ("stream", 700)])
+def test_compact_matches_reference(mode, capacity):
+    sh, C, rcfg, pcfg = compact_case("config3", 2)
+    capacity = capacity or C
+    rcfg = rcfg.replace(compaction=mode, power_cutoff=1e-5)
+    pcfg = pcfg.replace(compaction=mode, power_cutoff=1e-5)
+    ref_rays, ref_culled = ref_compact(sh, capacity, rcfg)
+    port_rays, port_culled = S.compact(port_tuple(S.ShadeOut, sh), capacity,
+                                       pcfg)
+    assert float(port_culled) == pytest.approx(float(ref_culled), rel=1e-5,
+                                               abs=1e-7)
+    assert_same_live_children(ref_rays, port_rays)
+    # same slots, too: top-k keeps jax.lax.top_k's order (stable sort)
+    assert_close_tuple(ref_rays, port_rays, atol=0.0, rtol=0.0)
+
+
+def test_compact_no_split_matches_reference():
+    sh, C, rcfg, pcfg = compact_case("config1", 1)
+    assert not rcfg.allow_splitting
+    ref_rays, ref_culled = ref_compact(sh, C, rcfg.replace(power_cutoff=0.05))
+    port_rays, port_culled = S.compact(port_tuple(S.ShadeOut, sh), C,
+                                       pcfg.replace(power_cutoff=0.05))
+    assert float(port_culled) == float(ref_culled)
+    assert_close_tuple(ref_rays, port_rays, atol=0.0, rtol=0.0)
+
+
+def test_topk_ties_keep_lower_slot():
+    # equal-power children overflowing the buffer: the same slots survive
+    # as in jax.lax.top_k (lower index first)
+    sh, C, rcfg, pcfg = compact_case("config3", 0)
+    n = sh.child_power.shape[0]
+    power = np.where(np.arange(n) % 3 == 0, 0.25, 0.5).astype(np.float32)
+    sh = sh._replace(child_power=jnp.asarray(power),
+                     child_alive=jnp.ones(n, bool))
+    ref_rays, ref_culled = ref_compact(sh, 500, rcfg)
+    port_rays, port_culled = S.compact(port_tuple(S.ShadeOut, sh), 500, pcfg)
+    assert_close_tuple(ref_rays, port_rays, atol=0.0, rtol=0.0)
+    assert float(port_culled) == pytest.approx(float(ref_culled), rel=1e-6)
+
+
+def test_morton_reorder_matches_reference():
+    rs, rays, _, _ = setup("config3", 1)
+    ref = R.reorder_rays(rs, rays)
+    port = S.reorder_rays(Scene.from_reference(rs, CPU),
+                          RayBatch.from_reference(rays, CPU))
+    assert_close_tuple(ref, port, atol=0.0, rtol=0.0)
+    assert not np.array_equal(np.asarray(ref.o), np.asarray(rays.o))
+
+
+@pytest.mark.parametrize("name", ["config2", "materials"])
+def test_trace_step_matches_reference(name):
+    rs, rays, rcfg, pcfg = setup(name, 1)
+    p_rays, p_det, p_led, p_aux = S.trace_step(
+        Scene.from_reference(rs, CPU), RayBatch.from_reference(rays, CPU),
+        DetectorState.zeros(36, 18, 2, device=CPU), Ledger.start(1.0, CPU),
+        pcfg)
+    det = RefDet.zeros(36, 18, 2)
+    led = RefLedger.start(1.0)
+    # (the jitted reference step consumes its input batch)
+    r_rays, r_det, r_led, r_aux = ref_step(rs, rays, det, led, rcfg)
+    for f in RefLedger._fields:
+        assert float(getattr(p_led, f)) == pytest.approx(
+            float(getattr(r_led, f)), rel=1e-5, abs=1e-6), f
+    m = int(r_aux.measured_count)
+    assert m == int(p_aux.measured_count) and int(r_aux.live_count) == \
+        int(p_aux.live_count)
+    for f in ("m_pos", "m_dir", "m_power", "m_det", "m_wl", "m_opl"):
+        a, b = np.asarray(getattr(r_aux, f))[:m], getattr(p_aux, f).numpy()[:m]
+        assert np.allclose(a, b, rtol=0, atol=1e-5), f
+    assert np.allclose(np.asarray(r_det.per_detector), p_det.per_detector,
+                       rtol=1e-5, atol=ATOL)
+
+
+def test_unported_branches_raise():
+    rs, rays, rcfg, pcfg = setup("config1")
+    ps, pr = Scene.from_reference(rs, CPU), RayBatch.from_reference(rays, CPU)
+    t = torch.full((pr.capacity,), float("inf"))
+    tri = torch.full((pr.capacity,), -1, dtype=torch.int32)
+    for kw in (dict(polarization=True), dict(has_gratings=True),
+               dict(has_coatings=True), dict(has_metals=True),
+               dict(has_diffuse=True), dict(has_roughness=True),
+               dict(time_bins=4), dict(roulette_threshold=0.1)):
+        with pytest.raises(NotImplementedError):
+            S.shade(ps, pr, t, tri, pcfg.replace(**kw))
+
+
+@pytest.mark.parametrize("n_bins", [1, 7, 648])
+def test_bincount_sorted_matches_float64(rng, n_bins):
+    idx = rng.integers(0, n_bins, 5000)
+    idx[:50] = n_bins - 1  # one long run
+    vals = rng.uniform(0, 1e-3, 5000).astype(np.float32)
+    out = S.bincount_sorted(torch.from_numpy(idx), torch.from_numpy(vals),
+                            n_bins)
+    ref = np.bincount(idx, weights=vals.astype(np.float64),
+                      minlength=n_bins)
+    assert out.dtype == torch.float32 and out.shape == (n_bins,)
+    assert np.allclose(out.numpy(), ref, rtol=1e-6, atol=0)
+    # the same inputs in another slot order give the same per-bin sums
+    # (up to association), and an empty input gives zeros
+    perm = torch.from_numpy(rng.permutation(5000))
+    again = S.bincount_sorted(torch.from_numpy(idx)[perm],
+                              torch.from_numpy(vals)[perm], n_bins)
+    assert np.allclose(again.numpy(), ref, rtol=1e-6, atol=0)
+    assert not S.bincount_sorted(torch.zeros(0, dtype=torch.int64),
+                                 torch.zeros(0), n_bins).any()
