@@ -4,10 +4,11 @@ Run from the repository root:  python3 chip_smoke.py
 
 It builds the port's CUDA kernel from csrc/, drives the tracer's main path
 (Tracer.trace in device and host mode) at the sizes the repository's bench
-uses, holds the kernel against its plain torch version, and checks the
-physics (power ledger, detected power, repeatability). Any failed check
-raises, so the script exits non-zero and prints no result. Without a CUDA
-device it exits non-zero at once. It imports nothing of JAX.
+uses, holds the kernel against its plain torch version (also on rays built
+to sit on the kernel's reject margin), and checks the physics (power
+ledger, detected power, repeatability). Any failed check raises, so the
+script exits non-zero and prints no result. Without a CUDA device it exits
+non-zero at once. It imports nothing of JAX.
 
 Output: one line per phase; then the kernel table as JSON, the card's
 `nvidia-smi` name and power limit, and last
@@ -18,14 +19,26 @@ import json
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
 
 BENCH_RAYS = 1 << 19      # 524,288 rays (bench.py)
 CMP_RAYS = 1 << 16        # 65,536 rays: kernel vs plain comparisons
+EDGE_RAYS = 1 << 16       # rays on the reject margin, per scene
+EDGE_CULL_RAYS = 1 << 13  # of them, Morton-sorted, through the cull mask
 KERNEL_SRC = "lightpycl_tpu_torch/csrc/intersect.cu"
 TPU_KERNEL = "lightpycl_tpu/ops/intersect_pallas.py"
+
+# The least time the card could take for a nearest hit: 39 flops a (ray,
+# triangle) pair as the reference writes it (6 dot products, the divide,
+# u, v, u + v) at the H100 SXM's FP32 peak, or its bytes (o, d, the rows
+# and the mask read once, t and tri written once) at its memory rate;
+# NVIDIA's data sheet at 700 W.
+FLOPS_PER_PAIR = 39
+FP32_FLOP_PER_S = 67e12
+HBM_BYTE_PER_S = 3.35e12
 
 
 def check(cond, what):
@@ -57,6 +70,29 @@ def cuda_ms(fn, reps=3):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return float(np.median(times))
+
+
+def bound(pairs, n_rays, n_tris, mask_words=0):
+    """(bound_ms, bound_by) of a nearest-hit launch over `pairs` pairs."""
+    t_ops = FLOPS_PER_PAIR * pairs / FP32_FLOP_PER_S
+    t_bytes = (n_rays * 32 + n_tris * 48 + mask_words * 4) / HBM_BYTE_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def kept_pairs(mask, n_rays, n_tris, ray_block, tri_tile):
+    """(ray, triangle) pairs in the (ray block, triangle tile) pairs the
+    bit-packed cull mask keeps."""
+    n_rb = -(-n_rays // ray_block)
+    n_tt = -(-n_tris // tri_tile)
+    words = mask.view(n_rb, -1).to(torch.int64) & 0xFFFFFFFF
+    bits = torch.stack([(words >> k) & 1 for k in range(32)], dim=2)
+    bits = bits.reshape(n_rb, -1)[:, :n_tt].to(torch.float64)
+    rays = torch.clamp(n_rays - ray_block * torch.arange(
+        n_rb, device=mask.device), max=ray_block).to(torch.float64)
+    tris = torch.clamp(n_tris - tri_tile * torch.arange(
+        n_tt, device=mask.device), max=tri_tile).to(torch.float64)
+    return int(rays @ bits @ tris)
 
 
 def bench_rays(n, seed=0):
@@ -118,8 +154,12 @@ def main():
     b1_ms = cuda_ms(lambda: PI.nearest_hit_cuda(o, d, *args))
     b1_plain_ms = cuda_ms(lambda: PI.nearest_hit_torch(
         o[:CMP_RAYS], d[:CMP_RAYS], *args))
+    T = scene.wu.shape[0]
+    b1_bound_ms, b1_bound_by = bound(BENCH_RAYS * T, BENCH_RAYS, T)
     line("3 B1 time", kernel_ms=b1_ms, kernel_rays=BENCH_RAYS,
          kernel_tests_per_s=f"{BENCH_RAYS * n_tris / b1_ms * 1e3:.4e}",
+         bound_ms=b1_bound_ms, bound_by=b1_bound_by,
+         share_of_bound=f"{b1_bound_ms / b1_ms:.4f}",
          plain_ms=b1_plain_ms, plain_rays=CMP_RAYS,
          plain_tests_per_s=f"{CMP_RAYS * n_tris / b1_plain_ms * 1e3:.4e}")
     del o, d
@@ -255,6 +295,11 @@ def main():
     b2_brute_ms = cuda_ms(lambda: PI.nearest_hit_cuda(srt.o, srt.d, *bargs))
     b2_plain_ms = cuda_ms(lambda: PI.nearest_hit_torch(
         srt.o[:nb], srt.d[:nb], *bargs, mask=mask), reps=1)
+    Tb = scene_b.wu.shape[0]
+    b2_pairs = kept_pairs(full_mask, BENCH_RAYS, Tb, PI.RAY_BLOCK,
+                          PI.TRI_TILE)
+    b2_bound_ms, b2_bound_by = bound(b2_pairs, BENCH_RAYS, Tb,
+                                     full_mask.numel())
     line("6 bowl cull", rays=BENCH_RAYS, triangles=scene_b.num_triangles_padded,
          iterations=res_cull.iterations_run,
          measured=res_cull.ledger["measured"],
@@ -262,6 +307,8 @@ def main():
          cull_speedup=f"{min(walls[False]) / min(walls[True]):.4f}",
          pairs_kept=f"{kept:.4f}",
          b2_first_bounce_ms=b2_ms, b1_first_bounce_ms=b2_brute_ms,
+         b2_pairs=b2_pairs, bound_ms=b2_bound_ms, bound_by=b2_bound_by,
+         share_of_bound=f"{b2_bound_ms / b2_ms:.4f}",
          b2_plain_ms=b2_plain_ms, b2_plain_rays=nb)
 
     # ---- 7. the main path went through the kernel --------------------------
@@ -269,16 +316,63 @@ def main():
     check(launches - cull_launches > 0, "brute kernel launched on the path")
     check(cull_launches > 0, "cull kernel launched on the path")
 
+    # ---- 8. rays on the kernel's reject margin ----------------------------
+    # aimed at vertices, shared-edge midpoints and centroids, grazing in a
+    # triangle's plane, starting on a triangle; over the bench sphere, the
+    # Morton-sorted bowl and two coincident copies of a mesh; isotropic
+    # through the brute kernel, and as a Morton-sorted, nearly parallel
+    # bundle through the cull kernel
+    twin = P.optical_elements(64, 32).sphere(2.0, material="terminator")
+    scene_t, _ = P.build_scene([twin, twin], device="cuda")
+    for name, sc in (("sphere", scene), ("bowl", scene_b), ("twin", scene_t)):
+        eo, ed = PI.edge_rays(sc, EDGE_RAYS, seed=5)
+        eargs = (sc.wu, sc.wv, sc.ww, 1e-4, 1e-6, 1e3)
+        t_k, i_k = PI.nearest_hit_cuda(eo, ed, *eargs)
+        t_p, i_p = PI.nearest_hit_torch(eo, ed, *eargs)
+        bo, bd = PI.edge_rays(sc, EDGE_RAYS, seed=6, direction=(0, 0, -1))
+        order = S.morton_permutation(sc, types.SimpleNamespace(
+            o=bo, alive=torch.ones(EDGE_RAYS, dtype=torch.bool,
+                                   device="cuda")))[:EDGE_CULL_RAYS]
+        co, cd = bo[order].contiguous(), bd[order].contiguous()
+        emask = PI.block_tile_mask(sc, co, cd, 1e3)
+        tc_k, ic_k = PI.nearest_hit_cuda(co, cd, *eargs, mask=emask)
+        tc_p, ic_p = PI.nearest_hit_torch(co, cd, *eargs, mask=emask)
+        torch.cuda.synchronize()
+        mism = {"brute_tri": int((i_k != i_p).sum()),
+                "brute_t_bits": int((t_k.view(torch.int32)
+                                     != t_p.view(torch.int32)).sum()),
+                "cull_tri": int((ic_k != ic_p).sum()),
+                "cull_t_bits": int((tc_k.view(torch.int32)
+                                    != tc_p.view(torch.int32)).sum())}
+        e_kept = kept_pairs(emask, EDGE_CULL_RAYS, sc.wu.shape[0],
+                            PI.RAY_BLOCK, PI.TRI_TILE) / (
+            EDGE_CULL_RAYS * sc.wu.shape[0])
+        line(f"8 edge rays {name}", rays=EDGE_RAYS, cull_rays=EDGE_CULL_RAYS,
+             triangles=sc.wu.shape[0], hits=int((i_k >= 0).sum()),
+             cull_pairs_kept=f"{e_kept:.4f}", **mism)
+        check(sum(mism.values()) == 0,
+              f"edge rays on {name}: kernel bitwise equal to the plain "
+              "version, brute and culled")
+        check(int((i_k >= 0).sum()) > EDGE_RAYS // 4,
+              f"edge rays on {name} hit")
+        if name == "twin":
+            check(bool(((i_k >= 0) <= (i_k < twin.num_triangles)).all()),
+                  "coincident copies: the lowest index wins")
+
     table = {"kernels": [
         {"name": "nearest_hit (B1, brute)", "route": "cuda",
          "source": KERNEL_SRC, "replaces": f"{TPU_KERNEL}:154",
          "launches": launches - cull_launches, "max_abs_err": b1_err,
-         "ms": b1_ms, "plain_ms": b1_plain_ms,
+         "ms": b1_ms, "plain_ms": b1_plain_ms, "bound_ms": b1_bound_ms,
+         "bound_by": b1_bound_by, "share_of_bound": b1_bound_ms / b1_ms,
+         "library_ms": None,
          "rays": BENCH_RAYS, "plain_rays": CMP_RAYS, "triangles": n_tris},
         {"name": "nearest_hit (B2, cull)", "route": "cuda",
          "source": KERNEL_SRC, "replaces": f"{TPU_KERNEL}:185",
          "launches": cull_launches, "max_abs_err": b2_err,
-         "ms": b2_ms, "plain_ms": b2_plain_ms,
+         "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound_ms,
+         "bound_by": b2_bound_by, "share_of_bound": b2_bound_ms / b2_ms,
+         "library_ms": None, "pairs": b2_pairs,
          "rays": BENCH_RAYS, "plain_rays": nb,
          "triangles": scene_b.num_triangles_padded},
     ]}
