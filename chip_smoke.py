@@ -5,8 +5,10 @@ Run from the repository root:  python3 chip_smoke.py
 It builds the port's CUDA kernel from csrc/, drives the tracer's main path
 (Tracer.trace in device and host mode) at the sizes the repository's bench
 uses, holds the kernel against its plain torch version (also on rays built
-to sit on the kernel's reject margin), and checks the physics (power
-ledger, detected power, repeatability). Any failed check raises, so the
+to sit on the kernel's reject margin, from edge_rays.py), and checks the
+physics (power ledger, detected power, repeatability). It prints the
+kernel's resources, its times beside their bound, and the profiler's
+split of two warm traces. Any failed check raises, so the
 script exits non-zero and prints no result. Without a CUDA device it exits
 non-zero at once. It imports nothing of JAX.
 
@@ -15,6 +17,7 @@ Output: one line per phase; then the kernel table as JSON, the card's
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -31,12 +34,13 @@ EDGE_CULL_RAYS = 1 << 13  # of them, Morton-sorted, through the cull mask
 KERNEL_SRC = "lightpycl_tpu_torch/csrc/intersect.cu"
 TPU_KERNEL = "lightpycl_tpu/ops/intersect_pallas.py"
 
-# The least time the card could take for a nearest hit: 39 flops a (ray,
-# triangle) pair as the reference writes it (6 dot products, the divide,
-# u, v, u + v) at the H100 SXM's FP32 peak, or its bytes (o, d, the rows
-# and the mask read once, t and tri written once) at its memory rate;
-# NVIDIA's data sheet at 700 W.
-FLOPS_PER_PAIR = 39
+# The least time the card could take for a nearest hit: the flops of the
+# kernel's division-free reject test, which every (ray, triangle) pair
+# needs (29: 12 FMAs, 3 multiplies, 2 adds; the exact lines run only for
+# the few pairs a ray that it keeps, and are left out), at the H100 SXM's
+# FP32 peak, or the bytes (o, d, the rows and the mask read once, t and
+# tri written once) at its memory rate; NVIDIA's data sheet at 700 W.
+FLOPS_PER_PAIR = 29
 FP32_FLOP_PER_S = 67e12
 HBM_BYTE_PER_S = 3.35e12
 
@@ -95,6 +99,41 @@ def kept_pairs(mask, n_rays, n_tris, ray_block, tri_tile):
     return int(rays @ bits @ tris)
 
 
+def profile_trace(fn):
+    """Device time of one trace fn() under torch.profiler: the nearest-hit
+    kernel's and the rest's (with its three largest ops); beside it the
+    trace's own wall (TraceResult.wall_time) from a call without the
+    profiler, and the device's idle share of that wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    wall = fn().wall_time * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = fn()
+        torch.cuda.synchronize()
+    kern, rest, top = 0.0, 0.0, []
+    for ev in prof.key_averages():
+        if ev.device_type.name != "CUDA":
+            continue
+        ms = getattr(ev, "device_time_total", None)
+        if ms is None:
+            ms = getattr(ev, "cuda_time_total", 0.0)
+        ms /= 1e3
+        if ms <= 0:
+            continue
+        if "nearest_hit_kernel" in ev.key:
+            kern += ms
+        else:
+            rest += ms
+            top.append((ms, ev.key[:40].replace(" ", "_")))
+    top.sort(reverse=True)
+    return {"trace_wall_ms": wall, "bounces": res.iterations_run,
+            "kernel_ms": kern, "rest_ms": rest, "busy_ms": kern + rest,
+            "idle_share": f"{1 - (kern + rest) / wall:.4f}",
+            "top_rest": ",".join(f"{k}:{ms:.3f}" for ms, k in top[:3])}
+
+
 def bench_rays(n, seed=0):
     """The bench's intersect rays (bench.py): origins in the unit cube,
     isotropic directions."""
@@ -112,6 +151,7 @@ def main():
         return 2
 
     import lightpycl_tpu_torch as P
+    from edge_rays import edge_rays
     from lightpycl_tpu_torch.ops import _build
     from lightpycl_tpu_torch.ops import intersect as PI
     from lightpycl_tpu_torch.tracer import step as S
@@ -127,10 +167,20 @@ def main():
 
     # ---- 2. build the kernel from the checkout's sources ------------------
     t0 = time.perf_counter()
-    PI.load_kernel()
+    lib = PI.load_kernel()
     build_s = time.perf_counter() - t0
     line("2 build", seconds=f"{build_s:.3f}",
          library=_build.library_path("intersect.cu", dict(PI._DEFINES)).name)
+    attrs = [ctypes.c_int() for _ in range(5)]
+    check(lib.lpcl_nearest_hit_resources(*map(ctypes.byref, attrs)) == 0,
+          "kernel resources readable")
+    regs, smem, local, threads, ctas = (a.value for a in attrs)
+    line("2 resources", registers=regs, static_smem_bytes=smem,
+         local_bytes=local, threads=threads, ctas_per_sm=ctas)
+    for ptx in _build.ptxas_report("intersect.cu", PI._DEFINES):
+        if ptx.strip():
+            print(f"[2 ptxas] {ptx.strip()}", flush=True)
+    check(local == 0, "no local memory (no register spills)")
 
     # ---- 3. B1 kernel vs plain at the bench's intersect shape -------------
     big = P.optical_elements(256, 256).sphere(5.0, material="terminator",
@@ -325,11 +375,11 @@ def main():
     twin = P.optical_elements(64, 32).sphere(2.0, material="terminator")
     scene_t, _ = P.build_scene([twin, twin], device="cuda")
     for name, sc in (("sphere", scene), ("bowl", scene_b), ("twin", scene_t)):
-        eo, ed = PI.edge_rays(sc, EDGE_RAYS, seed=5)
+        eo, ed = edge_rays(sc, EDGE_RAYS, seed=5)
         eargs = (sc.wu, sc.wv, sc.ww, 1e-4, 1e-6, 1e3)
         t_k, i_k = PI.nearest_hit_cuda(eo, ed, *eargs)
         t_p, i_p = PI.nearest_hit_torch(eo, ed, *eargs)
-        bo, bd = PI.edge_rays(sc, EDGE_RAYS, seed=6, direction=(0, 0, -1))
+        bo, bd = edge_rays(sc, EDGE_RAYS, seed=6, direction=(0, 0, -1))
         order = S.morton_permutation(sc, types.SimpleNamespace(
             o=bo, alive=torch.ones(EDGE_RAYS, dtype=torch.bool,
                                    device="cuda")))[:EDGE_CULL_RAYS]
@@ -358,6 +408,14 @@ def main():
         if name == "twin":
             check(bool(((i_k >= 0) <= (i_k < twin.num_triangles)).all()),
                   "coincident copies: the lowest index wins")
+
+    # ---- 9. where the device time goes (torch.profiler, warm traces) -----
+    for name, src, els in (("config1", cfg1_src(BENCH_RAYS), cfg1_els),
+                           ("bowl_cull", bowl_src, bowl)):
+        split = profile_trace(lambda: P.Tracer().trace(
+            src, els, trace_iterations=8, mode="device"))
+        check(split["kernel_ms"] > 0, f"{name}: profiler saw the kernel")
+        line(f"9 profile {name}", **split)
 
     table = {"kernels": [
         {"name": "nearest_hit (B1, brute)", "route": "cuda",

@@ -26,11 +26,13 @@
 // two agree bit for bit. __fmaf_rn appears only in the reject test below,
 // whose result decides whether a pair is skipped and never reaches (t, tri).
 //
-// What bounds it on the card: FP32 issue. Written as above, a pair costs
-// 39 flops; at 67 TFLOP/s that bounds 524,288 rays x 130,560 triangles at
-// ~40 ms. Run on every pair (unfused, with the divide's reciprocal, Newton
-// steps and slow-path check, one ray per thread) it issues ~55-60
-// instructions a pair and reaches ~25% of that bound.
+// What bounds it on the card: FP32 issue. Run on every pair (unfused,
+// with the divide's reciprocal, Newton steps and slow-path check, one ray
+// per thread) the sequence above costs 39 flops and issues ~55-60
+// instructions a pair. The reject test below needs 29 flops a pair (12
+// FMAs, 3 multiplies, 2 adds; 17 FP32 instructions), so at 67 TFLOP/s
+// 524,288 rays x 130,560 triangles take at least ~30 ms; the exact lines
+// run only for the few pairs a ray that the test keeps.
 //
 // The design:
 // 1. A division-free reject on every pair, in FMA; the exact lines only
@@ -52,11 +54,11 @@
 //    (__any_sync, one vote per two triangles), so they are issued only
 //    when some lane needs them; a ray line crosses few triangles, so the
 //    branch is rare, and it reads the rows from global memory (L2).
-// 2. Register blocking: each thread carries LPCL_RAYS_PER_THREAD rays
-//    (ray j of thread t is ray block*RAY_BLOCK + j*threads + t), so one
-//    broadcast of a record from shared memory feeds that many independent
-//    pairs; the next two records are loaded while two are tested.
-// 3. A pipeline over chunks of LPCL_CHUNK triangles with one
+// 2. Register blocking: each thread carries kRPT = 4 rays (ray j of
+//    thread t is ray block*RAY_BLOCK + j*threads + t), so one broadcast
+//    of a record from shared memory feeds that many independent pairs;
+//    the next two records are loaded while two are tested.
+// 3. A pipeline over chunks of kChunk = 64 triangles with one
 //    __syncthreads per chunk: while chunk i is tested, the rows of chunk
 //    i+1 (landed) become its records and the rows of chunk i+2 are copied
 //    in with cp.async. Two row and two record buffers in static shared
@@ -125,24 +127,14 @@
 #ifndef LPCL_TRI_TILE
 #define LPCL_TRI_TILE 256
 #endif
-#ifndef LPCL_RAYS_PER_THREAD
-#define LPCL_RAYS_PER_THREAD 4
-#endif
-#ifndef LPCL_CHUNK
-#define LPCL_CHUNK 64
-#endif
-#ifndef LPCL_MIN_BLOCKS
-#define LPCL_MIN_BLOCKS 8
-#endif
-
-constexpr int kRPT = LPCL_RAYS_PER_THREAD;
-constexpr int kThreads = LPCL_RAY_BLOCK / LPCL_RAYS_PER_THREAD;
+constexpr int kRPT = 4;        // rays per thread
+constexpr int kChunk = 64;     // triangles per pipeline stage
+constexpr int kMinBlocks = 8;  // __launch_bounds__: resident CTAs per SM
+constexpr int kThreads = LPCL_RAY_BLOCK / kRPT;
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = LPCL_CHUNK;
-constexpr int kChunksPerTile = LPCL_TRI_TILE / LPCL_CHUNK;
+constexpr int kChunksPerTile = LPCL_TRI_TILE / kChunk;
 constexpr int kTV = 2;  // triangles tested between two votes
-static_assert(kTV * LPCL_RAYS_PER_THREAD <= 32,
-              "one 32-bit keep mask per step");
+static_assert(kTV * kRPT <= 32, "one 32-bit keep mask per step");
 
 struct __align__(16) Rows {
   float4 u, v, w;  // a triangle's unit-transform rows
@@ -163,9 +155,9 @@ constexpr float kEta = 0x1p-60f;
 constexpr float kRange = 0x1p30f;
 constexpr float kEbUp = 0x1.004p0f;  // 1 + 2^-10
 
-static_assert(LPCL_RAY_BLOCK % (32 * LPCL_RAYS_PER_THREAD) == 0,
-              "RAY_BLOCK must be whole warps of RAYS_PER_THREAD rays");
-static_assert(LPCL_TRI_TILE % LPCL_CHUNK == 0 && LPCL_CHUNK % 32 == 0,
+static_assert(LPCL_RAY_BLOCK % (32 * kRPT) == 0,
+              "RAY_BLOCK must be whole warps of kRPT rays");
+static_assert(LPCL_TRI_TILE % kChunk == 0 && kChunk % 32 == 0,
               "TRI_TILE must be whole chunks, a chunk whole warps");
 static_assert(kSmemBytes <= 48 * 1024,
               "chunk buffers exceed the static shared-memory limit");
@@ -203,7 +195,7 @@ __device__ __forceinline__ float cross_term(float p, float q, float r,
   return __fmaf_rn(p, q, -(r * s));
 }
 
-__global__ void __launch_bounds__(kThreads, LPCL_MIN_BLOCKS)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 nearest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
                    int n_rays,
                    const float4* __restrict__ wu,
@@ -217,8 +209,10 @@ nearest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
   __shared__ Record s_rec[2 * kChunk];
   __shared__ float2 s_ray_scale[kWarps];
 
-  // the thread's rays; out of range, the moment is NaN, so that every
-  // fused value of the ray is NaN and none of its pairs is skipped
+  // the thread's rays. Padding rays past n_rays get o = 0, d = (0, 0, 1):
+  // a zero moment, which only widens the CTA's m_o, m_d. A ray out of
+  // range gets a NaN moment, so that every fused value of the ray is NaN
+  // and none of its pairs is skipped
   const int ray0 = blockIdx.x * LPCL_RAY_BLOCK + threadIdx.x;
   float dx[kRPT], dy[kRPT], dz[kRPT], lx[kRPT], ly[kRPT], lz[kRPT];
   float best[kRPT];
@@ -471,7 +465,7 @@ extern "C" int lpcl_nearest_hit(const float* o, const float* d, int n_rays,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The compiled kernel's resources, for the record (tools/kernel_bench.py):
+// The compiled kernel's resources, for the record (chip_smoke.py):
 // registers per thread, shared memory per CTA, local (spill) bytes per
 // thread, threads per CTA and resident CTAs per SM.
 // Returns the first CUDA error, else 0.

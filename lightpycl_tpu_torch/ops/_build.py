@@ -9,7 +9,9 @@ one is reused. Nothing here runs at import time.
 
 Flags: sm_90a (Hopper), no --use_fast_math (IEEE division), and
 -fmad=false, so each * and + stays a separately rounded operation and the
-kernel matches its plain torch version bit for bit.
+kernel matches its plain torch version bit for bit. -Xptxas -v reports
+each kernel's registers, shared memory and spills; the report is kept
+beside the library (`ptxas_report`).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ BUILD_DIR = PACKAGE_DIR / "build"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-              "-fmad=false"]
+              "-fmad=false", "-Xptxas", "-v"]
 
 
 def nvcc_path() -> str:
@@ -69,5 +71,14 @@ def load(source: str, defines: tuple = ()) -> ctypes.CDLL:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        lib.with_suffix(".ptxas").write_text(proc.stderr)
         os.replace(tmp, lib)  # atomic: concurrent builders never see half
     return ctypes.CDLL(str(lib))
+
+
+def ptxas_report(source: str, defines: tuple = ()) -> list[str]:
+    """The -Xptxas -v report (nvcc's stderr) of csrc/`source`'s build at
+    these defines, as lines (builds it first if needed)."""
+    load(source, defines)
+    path = library_path(source, dict(defines)).with_suffix(".ptxas")
+    return path.read_text().splitlines()

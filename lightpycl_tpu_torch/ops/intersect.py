@@ -30,14 +30,9 @@ import torch
 from lightpycl_tpu_torch.ops import _build
 
 # CUDA block shape, compiled into the kernel: rays per CTA and triangles
-# per cull tile. The cull mask is laid out for exactly this shape. Each
-# thread carries RAYS_PER_THREAD rays (RAY_BLOCK / RAYS_PER_THREAD threads
-# per CTA); triangles stream through shared memory CHUNK at a time.
+# per cull tile. The cull mask is laid out for exactly this shape.
 RAY_BLOCK = 256
 TRI_TILE = 256
-RAYS_PER_THREAD = 4
-CHUNK = 64
-MIN_BLOCKS = 8  # __launch_bounds__ minimum resident CTAs per SM
 
 # Relative margin of the kernel's division-free reject test (2^-16 = 256
 # units of f32 roundoff): a pair is skipped only when its fused barycentric
@@ -49,9 +44,7 @@ MIN_BLOCKS = 8  # __launch_bounds__ minimum resident CTAs per SM
 REJECT_DELTA = 2.0 ** -16
 
 _SOURCE = "intersect.cu"
-_DEFINES = (("LPCL_RAY_BLOCK", RAY_BLOCK), ("LPCL_TRI_TILE", TRI_TILE),
-            ("LPCL_RAYS_PER_THREAD", RAYS_PER_THREAD), ("LPCL_CHUNK", CHUNK),
-            ("LPCL_MIN_BLOCKS", MIN_BLOCKS))
+_DEFINES = (("LPCL_RAY_BLOCK", RAY_BLOCK), ("LPCL_TRI_TILE", TRI_TILE))
 
 _INF = float("inf")
 
@@ -346,57 +339,3 @@ def intersect(scene, o, d, cfg, alive=None):
                        scene.ww, cfg.eps, cfg.eps_bary, cfg.max_ray_len,
                        mask=mask, backend=cfg.backend)
 
-
-# --------------------------------------------------------------------------
-# Rays on the reject margin (the kernel's checks: tests, chip_smoke.py)
-# --------------------------------------------------------------------------
-
-EDGE_RAY_KINDS = ("vertex", "edge_mid", "centroid", "grazing", "on_surface")
-
-
-def edge_rays(scene, n: int, seed: int = 0, direction=None):
-    """n rays (o, d) f32 on the scene's device, built to sit where the
-    kernel's fused reject test and the exact test are closest: aimed
-    exactly at vertices, at midpoints of (shared) edges and at centroids
-    of random real triangles; lying in a triangle's plane (DW ~ 0); and
-    starting on a triangle (the eps self-hit guard), in both
-    hemispheres. The kinds cycle in EDGE_RAY_KINDS order. Directions are
-    isotropic, or within ~0.1 rad of `direction` (a coherent bundle, for
-    the cull mask) for all but the grazing kind."""
-    rng = np.random.default_rng(seed)
-    real = np.flatnonzero(torch.any(scene.ww != 0.0, dim=1).cpu().numpy())
-    tri = real[rng.integers(0, len(real), n)]
-    v0, e1, e2 = (x.cpu().numpy().astype(np.float64)[tri]
-                  for x in (scene.v0, scene.e1, scene.e2))
-    kind = np.arange(n) % len(EDGE_RAY_KINDS)
-    corner = rng.integers(0, 3, n)[:, None]
-    vertex = v0 + (corner == 1) * e1 + (corner == 2) * e2
-    edge_mid = v0 + np.where(corner == 0, e1 / 2,
-                             np.where(corner == 1, e2 / 2, (e1 + e2) / 2))
-    centroid = v0 + (e1 + e2) / 3.0
-    rnd = rng.normal(size=(n, 3))
-    if direction is not None:
-        rnd = (0.1 * rnd / np.sqrt(3.0)
-               + np.asarray(direction, np.float64)
-               / np.linalg.norm(direction))
-    rnd /= np.linalg.norm(rnd, axis=1, keepdims=True)
-    dist = rng.uniform(0.05, 3.0, (n, 1))
-    target = np.where((kind == 0)[:, None], vertex,
-                      np.where((kind == 1)[:, None], edge_mid, centroid))
-    o = target - dist * rnd
-    d = rnd.copy()
-    # grazing: start in the plane, outside the triangle, heading across it
-    a, b = rng.uniform(-1.0, 2.0, (2, n, 1))
-    in_plane = v0 + a * e1 + b * e2
-    across = centroid - in_plane
-    across /= np.maximum(np.linalg.norm(across, axis=1, keepdims=True),
-                         1e-300)
-    o = np.where((kind == 3)[:, None], in_plane, o)
-    d = np.where((kind == 3)[:, None], across, d)
-    # on the surface: start inside the triangle, leave in either hemisphere
-    a, b = rng.uniform(0.0, 1.0, (2, n, 1))
-    a, b = np.where(a + b > 1, 1 - a, a), np.where(a + b > 1, 1 - b, b)
-    o = np.where((kind == 4)[:, None], v0 + a * e1 + b * e2, o)
-    dev = scene.wu.device
-    return (torch.from_numpy(o.astype(np.float32)).to(dev),
-            torch.from_numpy(d.astype(np.float32)).to(dev))

@@ -238,35 +238,20 @@ def test_build_command_flags():
     assert not any("fast_math" in c or "fast-math" in c for c in cmd)
     assert f"-DLPCL_RAY_BLOCK={PI.RAY_BLOCK}" in cmd
     assert f"-DLPCL_TRI_TILE={PI.TRI_TILE}" in cmd
-    assert f"-DLPCL_RAYS_PER_THREAD={PI.RAYS_PER_THREAD}" in cmd
-    assert f"-DLPCL_CHUNK={PI.CHUNK}" in cmd
-    # one design: the block shape is the only thing the defines choose
-    assert sorted(k for k, _ in PI._DEFINES) == [
-        "LPCL_CHUNK", "LPCL_MIN_BLOCKS", "LPCL_RAYS_PER_THREAD",
-        "LPCL_RAY_BLOCK", "LPCL_TRI_TILE"]
-    assert PI.RAY_BLOCK % (32 * PI.RAYS_PER_THREAD) == 0
-    assert PI.TRI_TILE % PI.CHUNK == 0
+    # one design: the defines carry only the block shape the cull mask is
+    # laid out for; the kernel's other shape constants are compiled in
+    assert sorted(k for k, _ in PI._DEFINES) == ["LPCL_RAY_BLOCK",
+                                                 "LPCL_TRI_TILE"]
+    assert sum(c.startswith("-D") for c in cmd) == 2
+    # the kernel's static checks: whole warps of 4 rays a thread, whole
+    # 64-triangle chunks a tile
+    assert PI.RAY_BLOCK % (32 * 4) == 0 and PI.TRI_TILE % 64 == 0
     assert PI.REJECT_DELTA == 2.0 ** -16
     assert cmd[-1].endswith("csrc/intersect.cu")
     # the library name follows the source and the flags
     p = _build.library_path("intersect.cu", dict(PI._DEFINES))
     assert p.parent == _build.BUILD_DIR and p.suffix == ".so"
     assert p != _build.library_path("intersect.cu", {"LPCL_TRI_TILE": 512})
-
-
-def test_kernel_bench_shapes_and_refusal():
-    # every block shape the measurement script sweeps meets the kernel's
-    # static checks, the committed one among them; without a card the
-    # script refuses instead of measuring the CPU
-    from lightpycl_tpu_torch.tools import kernel_bench as KB
-
-    assert (PI.RAYS_PER_THREAD, PI.RAY_BLOCK, PI.CHUNK, PI.MIN_BLOCKS,
-            PI.TRI_TILE) in KB.SHAPES
-    for rpt, rb, chunk, _, tile in KB.SHAPES:
-        assert rb % (32 * rpt) == 0 and tile % chunk == 0
-        assert chunk % 32 == 0 and 2 * rpt <= 32
-    if not torch.cuda.is_available():
-        assert KB.main(["--resources"]) == 2
 
 
 @pytest.mark.cuda

@@ -26,6 +26,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 import lightpycl_tpu as L
+from edge_rays import EDGE_RAY_KINDS, edge_rays
 from lightpycl_tpu.tracer.step import intersect_jnp
 from lightpycl_tpu_torch.ops import intersect as PI
 from lightpycl_tpu_torch.tracer.scene import Scene as PortScene
@@ -212,17 +213,56 @@ def assert_no_hit_skipped(ps, o, d, eps_b=EPS_B):
     return hit, skip
 
 
-@pytest.mark.parametrize("kind", PI.EDGE_RAY_KINDS)
+@pytest.mark.parametrize("kind", EDGE_RAY_KINDS)
 @pytest.mark.parametrize("scene", sorted(SCENES))
 def test_edge_rays_never_skip_a_hit(scene, kind):
     _, ps = SCENES[scene]()
-    o, d = PI.edge_rays(ps, 5 * 300, seed=11)
+    o, d = edge_rays(ps, 5 * 300, seed=11)
     sel = torch.from_numpy(np.arange(5 * 300) % 5
-                           == PI.EDGE_RAY_KINDS.index(kind))
+                           == EDGE_RAY_KINDS.index(kind))
     hit, skip = assert_no_hit_skipped(ps, o[sel], d[sel])
     # not vacuous: the rays do hit, and the test skips most pairs
     assert bool(hit.any())
     assert float(skip.float().mean()) > 0.5
+
+
+@pytest.mark.parametrize("kind", EDGE_RAY_KINDS)
+def test_edge_rays_sit_where_they_say(kind):
+    # each kind lies where edge_rays says, to f32 rounding: its line
+    # through a vertex, an edge midpoint or a centroid of a real triangle;
+    # or in a triangle's plane (grazing), or starting inside a triangle
+    _, ps = sphere_scene()
+    o, d = edge_rays(ps, 5 * 40, seed=8)
+    sel = torch.from_numpy(np.arange(5 * 40) % 5
+                           == EDGE_RAY_KINDS.index(kind))
+    o, d = o[sel].double(), d[sel].double()
+    real = (ps.ww != 0).any(dim=1)
+    v0, e1, e2 = (x[real].double() for x in (ps.v0, ps.e1, ps.e2))
+    tol = 1e-4  # the sphere's radius is 5
+    if kind in ("vertex", "edge_mid", "centroid"):
+        pts = {"vertex": torch.cat([v0, v0 + e1, v0 + e2]),
+               "edge_mid": torch.cat([v0 + e1 / 2, v0 + e2 / 2,
+                                      v0 + (e1 + e2) / 2]),
+               "centroid": v0 + (e1 + e2) / 3}[kind]
+        off = torch.linalg.cross(pts[None] - o[:, None],
+                                 d[:, None].expand(-1, len(pts), -1))
+        assert float(off.norm(dim=2).amin(dim=1).max()) < tol
+        return
+    n = torch.linalg.cross(e1, e2)
+    n = n / n.norm(dim=1, keepdim=True)
+    p = o[:, None] - v0[None]
+    in_plane = (p * n).sum(dim=2).abs() < tol
+    if kind == "grazing":
+        ok = in_plane & ((d[:, None] * n).sum(dim=2).abs() < 1e-5)
+    else:
+        g11, g12, g22 = ((e1 * e1).sum(1), (e1 * e2).sum(1),
+                         (e2 * e2).sum(1))
+        p1, p2 = (p * e1).sum(2), (p * e2).sum(2)
+        det = g11 * g22 - g12 * g12
+        a = (p1 * g22 - p2 * g12) / det
+        b = (p2 * g11 - p1 * g12) / det
+        ok = in_plane & (a >= -1e-5) & (b >= -1e-5) & (a + b <= 1 + 1e-5)
+    assert bool(ok.any(dim=1).all())
 
 
 @settings(max_examples=25, deadline=None)
@@ -246,7 +286,7 @@ def test_plucker_form_is_the_cross_of_dots():
     # the fused U', V', W' are OU*DW - OW*DU, OV*DW - OW*DV and
     # DW - U' - V' (in float64, of the same inputs) to f32 rounding
     _, ps = sphere_scene()
-    o, d = PI.edge_rays(ps, 200, seed=4)
+    o, d = edge_rays(ps, 200, seed=4)
     U, V, W = (x.double() for x in fused_values(o, d, ps.wu, ps.wv, ps.ww))
     o64, d64 = o.double(), d.double()
     a, b, c = (w.double() for w in (ps.wu, ps.wv, ps.ww))
@@ -264,7 +304,7 @@ def test_margin_is_needed():
     # edges lose exact hits to the fused test; with the margin they keep
     # them: the margin is what keeps the kernel bit-equal
     _, ps = sphere_scene()
-    o, d = PI.edge_rays(ps, 3000, seed=5)
+    o, d = edge_rays(ps, 3000, seed=5)
     _, hit = exact_hits(o, d, ps.wu, ps.wv, ps.ww, eps_b=0.0)
     lost = hit & fused_skip(o, d, ps.wu, ps.wv, ps.ww, eps_b=0.0, delta=0.0)
     assert bool(lost.any())
@@ -277,7 +317,7 @@ def test_padding_and_degenerate_rows_run_the_exact_path(rng):
     _, ps = sphere_scene()
     assert ps.num_triangles_padded > int((ps.ww != 0).any(dim=1).sum())
     pad = ~(ps.ww != 0).any(dim=1)
-    o, d = PI.edge_rays(ps, 200, seed=2)
+    o, d = edge_rays(ps, 200, seed=2)
     hit, skip = assert_no_hit_skipped(ps, o, d)
     assert not bool(skip[:, pad].any())
     assert not bool(hit[:, pad].any())
@@ -298,7 +338,7 @@ def test_mirrored_kernel_equals_plain_and_reference(scene):
     # the kernel's skip-then-exact nearest hit, bit for bit the plain
     # version's, and on the JAX reference's triangle indices
     rs, ps = SCENES[scene]()
-    o, d = PI.edge_rays(ps, 1000, seed=3)
+    o, d = edge_rays(ps, 1000, seed=3)
     t_k, i_k = mirrored_kernel(o, d, ps.wu, ps.wv, ps.ww)
     t_p, i_p = PI.nearest_hit_torch(o, d, ps.wu, ps.wv, ps.ww, EPS, EPS_B,
                                     T_MAX)
@@ -306,7 +346,7 @@ def test_mirrored_kernel_equals_plain_and_reference(scene):
     # the reference rounds in its own order, so a ray aimed at a shared
     # edge or vertex may go to either neighbour there: compare the
     # centroid rays, whose triangle is unambiguous
-    cen = np.arange(1000) % 5 == PI.EDGE_RAY_KINDS.index("centroid")
+    cen = np.arange(1000) % 5 == EDGE_RAY_KINDS.index("centroid")
     _, i_ref = intersect_jnp(rs, jnp.asarray(o.numpy()[cen]),
                              jnp.asarray(d.numpy()[cen]), L.TraceConfig())
     assert np.array_equal(np.asarray(i_ref), i_p.numpy()[cen])
@@ -333,7 +373,7 @@ def test_kernel_on_edge_rays_bit_equal_on_card(cull):
     for make in SCENES.values():
         rs, _ = make()
         ps = PortScene.from_reference(rs, "cuda")
-        o, d = PI.edge_rays(ps, 4096, seed=7)
+        o, d = edge_rays(ps, 4096, seed=7)
         mask = (PI.block_tile_mask(ps, o, d, T_MAX) if cull else None)
         args = (ps.wu, ps.wv, ps.ww, EPS, EPS_B, T_MAX)
         t1, i1 = PI.nearest_hit_cuda(o, d, *args, mask=mask)

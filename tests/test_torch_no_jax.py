@@ -60,21 +60,21 @@ def test_port_imports_and_traces_without_jax():
 
 
 def test_port_sources_do_not_import_jax():
-    # static guard beside the runtime one: no module of the port names jax
-    # or the JAX package in an import statement
+    # static guard beside the runtime one: no module of the port, and not
+    # the card's smoke run or its ray fixture, names jax or the JAX
+    # package in an import statement
     pkg = os.path.join(REPO, "lightpycl_tpu_torch")
-    offenders = []
+    paths = [os.path.join(REPO, f) for f in ("chip_smoke.py", "edge_rays.py")]
     for root, dirs, files in os.walk(pkg):
         dirs[:] = [d for d in dirs if d != "build"]  # kernel build output
-        for f in files:
-            if not f.endswith(".py"):
-                continue
-            path = os.path.join(root, f)
-            with open(path) as fh:
-                for n, line in enumerate(fh, 1):
-                    s = line.strip()
-                    if s.startswith(("import ", "from ")) and (
-                            s.split()[1].split(".")[0]
-                            in ("jax", "jaxlib", "lightpycl_tpu")):
-                        offenders.append(f"{path}:{n}: {s}")
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    offenders = []
+    for path in paths:
+        with open(path) as fh:
+            for n, line in enumerate(fh, 1):
+                s = line.strip()
+                if s.startswith(("import ", "from ")) and (
+                        s.split()[1].split(".")[0]
+                        in ("jax", "jaxlib", "lightpycl_tpu")):
+                    offenders.append(f"{path}:{n}: {s}")
     assert not offenders, offenders
