@@ -2,15 +2,16 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-It builds the port's CUDA kernel from csrc/, drives the tracer's main path
-(Tracer.trace in device and host mode) at the sizes the repository's bench
-uses, holds the kernel against its plain torch version (also on rays built
-to sit on the kernel's reject margin, from edge_rays.py), and checks the
-physics (power ledger, detected power, repeatability). It prints the
-kernel's resources, its times beside their bound, and the profiler's
-split of two warm traces. Any failed check raises, so the
-script exits non-zero and prints no result. Without a CUDA device it exits
-non-zero at once. It imports nothing of JAX.
+It builds the port's CUDA kernel from csrc/, drives the tracer's main paths
+(Tracer.trace in device and host mode at the sizes the repository's bench
+uses, and Tracer.trace_batched on BASELINE config 4 at its full 100M rays),
+holds the kernel against its plain torch version (also on rays built to sit
+on the kernel's reject margin, from edge_rays.py), and checks the physics
+(power ledger, detected power, repeatability, checkpoint resume). It prints
+the kernel's resources, its times beside their bound, and the profiler's
+split of three warm traces. Any failed check raises, so the script exits
+non-zero and prints no result. Without a CUDA device it exits non-zero at
+once. It imports nothing of JAX.
 
 Output: one line per phase; then the kernel table as JSON, the card's
 `nvidia-smi` name and power limit, and last
@@ -21,6 +22,7 @@ import ctypes
 import json
 import subprocess
 import sys
+import tempfile
 import time
 import types
 
@@ -31,6 +33,13 @@ BENCH_RAYS = 1 << 19      # 524,288 rays (bench.py)
 CMP_RAYS = 1 << 16        # 65,536 rays: kernel vs plain comparisons
 EDGE_RAYS = 1 << 16       # rays on the reject margin, per scene
 EDGE_CULL_RAYS = 1 << 13  # of them, Morton-sorted, through the cull mask
+CFG4_BATCH = 4_000_000    # config 4 (benchmarks/baseline_configs.py:117)
+CFG4_RAYS = 100_000_000   # BASELINE.json configs[3]
+CFG4_CMP_RAYS = 16_000_000  # brute vs culled
+SEM_BATCH = 1 << 20       # phase 11: batched semantics, 4 batches
+SEM_CMP_BATCH = 1 << 16   # phase 11 (c): kernel vs plain version, 2 batches
+BATCH_FIELDS = ("hist", "per_detector", "image", "image_amp", "tri_flux",
+                "time_hist", "per_batch_detector")
 KERNEL_SRC = "lightpycl_tpu_torch/csrc/intersect.cu"
 TPU_KERNEL = "lightpycl_tpu/ops/intersect_pallas.py"
 
@@ -99,9 +108,9 @@ def kept_pairs(mask, n_rays, n_tris, ray_block, tri_tile):
     return int(rays @ bits @ tris)
 
 
-def profile_trace(fn):
+def profile_trace(fn, top=3):
     """Device time of one trace fn() under torch.profiler: the nearest-hit
-    kernel's and the rest's (with its three largest ops); beside it the
+    kernel's and the rest's (with its `top` largest ops); beside it the
     trace's own wall (TraceResult.wall_time) from a call without the
     profiler, and the device's idle share of that wall."""
     from torch.profiler import ProfilerActivity, profile
@@ -112,7 +121,7 @@ def profile_trace(fn):
                              ProfilerActivity.CUDA]) as prof:
         res = fn()
         torch.cuda.synchronize()
-    kern, rest, top = 0.0, 0.0, []
+    kern, rest, tops = 0.0, 0.0, []
     for ev in prof.key_averages():
         if ev.device_type.name != "CUDA":
             continue
@@ -126,12 +135,19 @@ def profile_trace(fn):
             kern += ms
         else:
             rest += ms
-            top.append((ms, ev.key[:40].replace(" ", "_")))
-    top.sort(reverse=True)
+            tops.append((ms, ev.key[:40].replace(" ", "_")))
+    tops.sort(reverse=True)
     return {"trace_wall_ms": wall, "bounces": res.iterations_run,
             "kernel_ms": kern, "rest_ms": rest, "busy_ms": kern + rest,
             "idle_share": f"{1 - (kern + rest) / wall:.4f}",
-            "top_rest": ",".join(f"{k}:{ms:.3f}" for ms, k in top[:3])}
+            "top_rest": ",".join(f"{k}:{ms:.3f}" for ms, k in tops[:top])}
+
+
+def same_batched(a, b):
+    """Two trace_batched results equal bit for bit in every accumulator and
+    the ledger."""
+    return a.ledger == b.ledger and all(
+        np.array_equal(getattr(a, f), getattr(b, f)) for f in BATCH_FIELDS)
 
 
 def bench_rays(n, seed=0):
@@ -417,17 +433,150 @@ def main():
         check(split["kernel_ms"] > 0, f"{name}: profiler saw the kernel")
         line(f"9 profile {name}", **split)
 
+    # ---- 10. config 4 at full size: trace_batched, the mega-batch path ----
+    oe4 = P.optical_elements(360, 180)
+    cfg4_els = [oe4.parabolic_mirror(focus=1.0, diameter=4.0,
+                                     reflectivity=0.95),
+                P.optical_elements(128, 32).hemisphere(radius=100.0,
+                                                       name="dome")]
+    src4 = P.CollimatedSource(center=(0, 0, 5), direction=(0, 0, -1),
+                              diameter=3.5, power=1.0)
+
+    def cfg4(total, cull, **kw):
+        tr = P.Tracer(P.TraceConfig(trace_iterations=4, cull=cull))
+        res = tr.trace_batched(src4, total_rays=total, batch_size=CFG4_BATCH,
+                               elements=cfg4_els, **kw)
+        return tr, res
+
+    t0 = time.perf_counter()
+    cfg4(CFG4_BATCH, None)  # one batch: first-use costs
+    warm_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    PI.nearest_hit_cuda.launches = 0
+    PI.nearest_hit_cuda.cull_launches = 0
+    tr4, res4 = cfg4(CFG4_RAYS, None)
+    torch.cuda.synchronize()
+    launches4 = PI.nearest_hit_cuda.launches
+    cull_launches4 = PI.nearest_hit_cuda.cull_launches
+    peak4 = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    cfg4(CFG4_BATCH, None)
+    warm_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_tris4 = tr4.num_triangles
+    led4 = res4.ledger
+    check(tr4._scene_sorted and cull_launches4 > 0,
+          "config 4: auto-cull resolved on")
+    check(res4.power_conservation_error() <= 1e-5, "config 4 ledger closes")
+    check(abs(led4["measured"] - 0.95) <= 1e-3, "config 4 measures 0.95")
+    check(abs(res4.hist.sum() - led4["measured"]) <= 1e-4 * led4["measured"],
+          "config 4 histogram sums to the measured power")
+    check(np.isfinite(res4.detector_stderr("dome")),
+          "config 4 per-batch standard error finite")
+    check(peak4 <= 1.25 * warm_peak,
+          "config 4 device memory does not grow from batch to batch")
+    line("10 config4 100M", rays=CFG4_RAYS, batches=CFG4_RAYS // CFG4_BATCH,
+         triangles=n_tris4, iterations=res4.iterations_run,
+         measured=led4["measured"], emitted=led4["emitted"],
+         conservation_err=res4.power_conservation_error(),
+         stderr_dome=res4.detector_stderr("dome"), wall_s=res4.wall_time,
+         tests_per_s=f"{res4.intersection_tests / res4.wall_time:.4e}",
+         rays_per_s=f"{CFG4_RAYS / res4.wall_time:.4e}",
+         launches=launches4, cull_launches=cull_launches4,
+         peak_mem_gib=f"{peak4:.3f}", one_batch_peak_mem_gib=f"{warm_peak:.3f}",
+         warmup_batch_s=f"{warm_s:.3f}")
+    res16 = {}
+    for cull in (False, None):
+        PI.nearest_hit_cuda.launches = 0
+        PI.nearest_hit_cuda.cull_launches = 0
+        _, res16[cull] = cfg4(CFG4_CMP_RAYS, cull)
+        torch.cuda.synchronize()
+        launches4 += PI.nearest_hit_cuda.launches
+        cull_launches4 += PI.nearest_hit_cuda.cull_launches
+        r = res16[cull]
+        check(r.power_conservation_error() <= 1e-5,
+              f"config 4 16M cull={cull} ledger closes")
+        line(f"10 config4 16M cull={cull}", rays=CFG4_CMP_RAYS,
+             iterations=r.iterations_run, measured=r.ledger["measured"],
+             wall_s=r.wall_time,
+             tests_per_s=f"{r.intersection_tests / r.wall_time:.4e}",
+             rays_per_s=f"{CFG4_CMP_RAYS / r.wall_time:.4e}",
+             launches=PI.nearest_hit_cuda.launches,
+             cull_launches=PI.nearest_hit_cuda.cull_launches)
+    for k, v in res16[False].ledger.items():
+        check(abs(res16[None].ledger[k] - v) <= 1e-6 * max(abs(v), 1.0),
+              f"config 4 16M ledger[{k}] cull vs brute to 1e-6")
+    line("10 config4 cull", cull_speedup_config4=(
+        f"{res16[False].wall_time / res16[None].wall_time:.4f}"))
+
+    # ---- 11. batched semantics on the card: maps, roulette, resume -------
+    sem_src = P.CollimatedSource(center=(0, 0, 5), direction=(0, 0, -1),
+                                 diameter=3.5, power=1.0, sampling="random")
+    # roulette above the per-ray child power (0.95 / 2^22 = 2.3e-7); the
+    # OPL window around the source -> dish -> dome path (~104-106); the
+    # image plane z = 0, normal to the axis, wide enough for every dome hit
+    sem_kw = dict(trace_iterations=4, seed=11, roulette_threshold=5e-7,
+                  time_bins=64, opl_min=95.0, opl_max=115.0, flux_map=True,
+                  image_bins=128, coherent=True, image_center=(0, 0, 0),
+                  image_normal=(0, 0, 1), image_halfwidth=100.0)
+
+    def sem(total, batch, **kw):
+        args = dict(sem_kw)
+        args.update(kw)
+        return P.Tracer().trace_batched(sem_src, total_rays=total,
+                                        batch_size=batch, elements=cfg4_els,
+                                        **args)
+
+    a = sem(4 * SEM_BATCH, SEM_BATCH)
+    check(a.power_conservation_error() <= 1e-5, "phase 11 ledger closes")
+    check(same_batched(a, sem(4 * SEM_BATCH, SEM_BATCH)),
+          "phase 11 (a): repeat run bit-identical")
+    no_rr = sem(4 * SEM_BATCH, SEM_BATCH, roulette_threshold=0.0)
+    check(no_rr.ledger["measured"] != a.ledger["measured"],
+          "phase 11: roulette acted")
+    check(abs(a.time_hist.sum() - a.ledger["measured"])
+          <= 1e-4 * a.ledger["measured"] and a.image_amp.shape == (2, 128, 128)
+          and a.tri_flux.shape == (n_tris4,),
+          "phase 11 maps hold the measured power")
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = f"{tmp}/run"
+        part = sem(4 * SEM_BATCH, SEM_BATCH, checkpoint_path=ck,
+                   max_batches=2)
+        resumed = sem(4 * SEM_BATCH, SEM_BATCH, checkpoint_path=ck)
+    check(part.per_batch_detector.shape[0] == 2 and same_batched(a, resumed),
+          "phase 11 (b): interrupted + resumed == uninterrupted")
+    kern = sem(2 * SEM_CMP_BATCH, SEM_CMP_BATCH)
+    plain = sem(2 * SEM_CMP_BATCH, SEM_CMP_BATCH, backend="torch")
+    check(same_batched(kern, plain),
+          "phase 11 (c): backend='cuda' == backend='torch'")
+    line("11 batched semantics", rays=4 * SEM_BATCH,
+         measured=a.ledger["measured"], measured_no_roulette=no_rr.ledger[
+             "measured"], culled=a.ledger["culled"],
+         image_coherent_max=float(a.image_coherent.max()),
+         time_hist_peak_bin=int(a.time_hist.argmax()),
+         repeat_equal=True, resume_equal=True, kernel_equals_plain=True,
+         plain_rays=2 * SEM_CMP_BATCH, plain_wall_s=plain.wall_time,
+         kernel_wall_s=kern.wall_time)
+
+    # ---- 12. where config 4's device time goes (one warm batch) ----------
+    split4 = profile_trace(lambda: cfg4(CFG4_BATCH, None)[1], top=6)
+    check(split4["kernel_ms"] > 0, "config 4: profiler saw the kernel")
+    line("12 profile config4", **split4)
+
     table = {"kernels": [
         {"name": "nearest_hit (B1, brute)", "route": "cuda",
          "source": KERNEL_SRC, "replaces": f"{TPU_KERNEL}:154",
-         "launches": launches - cull_launches, "max_abs_err": b1_err,
+         "launches": launches - cull_launches + launches4 - cull_launches4,
+         "launches_trace_batched": launches4 - cull_launches4,
+         "max_abs_err": b1_err,
          "ms": b1_ms, "plain_ms": b1_plain_ms, "bound_ms": b1_bound_ms,
          "bound_by": b1_bound_by, "share_of_bound": b1_bound_ms / b1_ms,
          "library_ms": None,
          "rays": BENCH_RAYS, "plain_rays": CMP_RAYS, "triangles": n_tris},
         {"name": "nearest_hit (B2, cull)", "route": "cuda",
          "source": KERNEL_SRC, "replaces": f"{TPU_KERNEL}:185",
-         "launches": cull_launches, "max_abs_err": b2_err,
+         "launches": cull_launches + cull_launches4,
+         "launches_trace_batched": cull_launches4, "max_abs_err": b2_err,
          "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound_ms,
          "bound_by": b2_bound_by, "share_of_bound": b2_bound_ms / b2_ms,
          "library_ms": None, "pairs": b2_pairs,

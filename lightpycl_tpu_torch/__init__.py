@@ -8,9 +8,12 @@ counterpart. The ray x triangle nearest-hit kernel is hand-written CUDA C++
 torch. Importing this package needs neither jax nor lightpycl_tpu, and
 builds nothing.
 
-First slice: the single-device trace (`Tracer.trace(mode="host" |
+Ported so far: the single-device trace (`Tracer.trace(mode="host" |
 "device")` and the `CL_Tracer.iterative_tracer` facade) with the core
-material model; unported features raise NotImplementedError (ROADMAP.md).
+material model, the optional detector maps and roulette, and the batched
+mega-ray tracer `Tracer.trace_batched` with the sources' device samplers,
+checkpoint / resume and ray-file replay (`lightpycl_tpu_torch.io`);
+unported features raise NotImplementedError (ROADMAP.md).
 """
 
 from lightpycl_tpu_torch.materials import Material, glass

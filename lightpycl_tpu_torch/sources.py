@@ -1,20 +1,34 @@
-"""Light sources: host-side ray-batch generators.
+"""Light sources: ray-batch generators.
 
-Port counterpart of lightpycl_tpu/sources.py, numpy half only: the sources
-sample on the host with numpy exactly as the reference does, so both
-packages trace identical rays from the same seed. The reference's
-`rays_on_device` / `wavelengths_on_device` samplers (jax.random) are not
-ported yet (ROADMAP.md).
+Port counterpart of lightpycl_tpu/sources.py. `sample` / `sample_wavelengths`
+draw on the host with numpy exactly as the reference does, so both packages
+trace identical rays from the same seed. `rays_on_device(gen, n)` /
+`wavelengths_on_device(gen, n)` draw a batch on the device of the
+torch.Generator `gen` (Tracer.trace_batched): each is a draw of unit
+uniforms (`_uniforms`, in the order of the reference's split keys k1..k4)
+followed by a pure map (`_rays_from_uniforms`), so the map can be held
+against the reference on the reference's own uniforms. torch's random
+streams are not JAX's: the two packages draw different rays from the same
+seed, with the same distribution. Halton and hexapolar streams are
+deterministic and equal the reference's (the same rays in every batch).
+
+A `directivity` callable is handed torch tensors on the device by
+`LightSource.rays_on_device`; one written for numpy only fails there, as it
+does under the reference's jit.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 D_LINE_UM = 0.5876  # default wavelength [um]
+
+_F32 = torch.float32
 
 
 def _sample_wavelengths_np(rng, n, wavelength):
@@ -24,6 +38,53 @@ def _sample_wavelengths_np(rng, n, wavelength):
     wls, wts = np.asarray(wavelength[0], float), np.asarray(wavelength[1], float)
     p = wts / wts.sum()
     return rng.choice(wls, size=n, p=p)
+
+
+def _sample_wavelengths_dev(gen: torch.Generator, n: int, wavelength):
+    """(n,) f32 wavelengths on the generator's device: a scalar [um], or a
+    (wavelengths, weights) spectrum drawn by the inverse CDF of the weights
+    on float64 unit uniforms."""
+    dev = gen.device
+    if np.isscalar(wavelength):
+        return torch.full((n,), float(wavelength), dtype=_F32, device=dev)
+    u = torch.rand((n,), generator=gen, dtype=torch.float64, device=dev)
+    return _wavelengths_from_uniforms(u, wavelength)
+
+
+def _wavelengths_from_uniforms(u: torch.Tensor, wavelength):
+    """The spectrum line of each unit uniform u: line i with probability
+    w_i / sum(w) (inverse CDF; zero-weight lines are never drawn)."""
+    wls = torch.as_tensor(np.asarray(wavelength[0], np.float32),
+                          device=u.device)
+    cdf = np.cumsum(np.asarray(wavelength[1], np.float64))
+    cdf /= cdf[-1]
+    cdf[-1] = 1.0
+    idx = torch.searchsorted(torch.as_tensor(cdf, device=u.device), u,
+                             right=True)
+    return wls[torch.clamp_max(idx, wls.shape[0] - 1)]
+
+
+def _scaled(u: torch.Tensor, lo, hi) -> torch.Tensor:
+    """u * (hi - lo) + lo in f32 with one rounding, as the reference's
+    jax.random.uniform(minval=lo, maxval=hi) compiles it (a fused
+    multiply-add): the f32 product is exact in f64. Near the pole of a cone
+    a separately rounded add moves a direction by several 1e-6."""
+    lo = torch.as_tensor(lo, dtype=_F32)
+    span = torch.as_tensor(hi, dtype=_F32) - lo
+    return (u.double() * span.double() + lo.double()).to(_F32)
+
+
+def _uniforms(gen: torch.Generator, n: int, k: int):
+    """k independent (n,) f32 unit-uniform draws from `gen`, in order."""
+    return [torch.rand((n,), generator=gen, dtype=_F32, device=gen.device)
+            for _ in range(k)]
+
+
+def _frame_rows(direction, device):
+    """The rows u, v, w of `_frame(direction)` as f32 tensors."""
+    F = torch.as_tensor(np.asarray(_frame(direction), np.float32),
+                        device=device)
+    return F[0], F[1], F[2]
 
 
 def halton_sequence(n: int, base: int, offset: int = 1) -> np.ndarray:
@@ -151,6 +212,38 @@ class LightSource:
         rng = rng or np.random.default_rng(self.seed + 1)
         return _sample_wavelengths_np(rng, int(n or self.ray_count), self.wavelength)
 
+    def rays_on_device(self, gen: torch.Generator, n: Optional[int] = None):
+        """Device-side generation (uniform directions in the cone, weights
+        from a directivity callable that accepts tensors). Returns
+        (origins, dirs, powers) as f32 tensors of length n."""
+        n = int(n or self.ray_count)
+        return self._rays_from_uniforms(_uniforms(gen, n, 2), n, gen.device)
+
+    def _rays_from_uniforms(self, u, n: int, device):
+        """The map of rays_on_device from its unit uniforms u = [u1, u2]."""
+        z = _scaled(u[0], torch.cos(torch.tensor(self.polar_max,
+                                                 dtype=_F32)), 1.0)
+        phi = _scaled(u[1], 0.0, 2.0 * math.pi)
+        s = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+        if self.directivity is not None:
+            w = torch.clamp_min(self.directivity(
+                phi, torch.arccos(torch.clamp(z, -1.0, 1.0))), 0.0)
+        else:
+            w = torch.ones((n,), dtype=_F32, device=device)
+        powers = w * (self.power / torch.clamp_min(torch.sum(w), 1e-30))
+        fu, fv, fw = _frame_rows(self.direction, device)
+        # elementwise frame combination, the local (+z = axis) to world map
+        dirs = ((s * torch.cos(phi))[:, None] * fu
+                + (s * torch.sin(phi))[:, None] * fv + z[:, None] * fw)
+        origins = torch.as_tensor(np.asarray(self.center, np.float32),
+                                  device=device).expand(n, 3)
+        return (origins.contiguous(), dirs.to(_F32), powers.to(_F32))
+
+    def wavelengths_on_device(self, gen: torch.Generator,
+                              n: Optional[int] = None):
+        return _sample_wavelengths_dev(gen, int(n or self.ray_count),
+                                       self.wavelength)
+
 
 @dataclasses.dataclass
 class CollimatedSource:
@@ -189,7 +282,9 @@ class CollimatedSource:
             raise ValueError("profile='gaussian' needs waist > 0")
         a = self.diameter / 2.0
         u = (r / a) ** 2                     # the underlying uniform variate
-        cap = 1.0 - xp.exp(-2.0 * (a / self.waist) ** 2)
+        # (xp.asarray: torch.exp takes no Python float; f32 under torch, as
+        # the reference's jnp computes it)
+        cap = 1.0 - xp.exp(xp.asarray(-2.0 * (a / self.waist) ** 2))
         return self.waist * xp.sqrt(-xp.log1p(-u * cap) / 2.0)
 
     def _hexapolar(self, n):
@@ -260,6 +355,72 @@ class CollimatedSource:
                            n: Optional[int] = None):
         rng = rng or np.random.default_rng(self.seed + 1)
         return _sample_wavelengths_np(rng, int(n or self.ray_count), self.wavelength)
+
+    def wavelengths_on_device(self, gen: torch.Generator,
+                              n: Optional[int] = None):
+        return _sample_wavelengths_dev(gen, int(n or self.ray_count),
+                                       self.wavelength)
+
+    def rays_on_device(self, gen: torch.Generator, n: Optional[int] = None):
+        """(origins, dirs, powers) f32 tensors of n rays on the generator's
+        device. 'random' draws u1, u2 (aperture) and, with a divergence,
+        u3, u4 (cone); 'halton' and 'hexapolar' draw nothing."""
+        n = int(n or self.ray_count)
+        k = 4 if self.divergence > 0.0 else 2
+        u = (_uniforms(gen, n, k) if self.sampling == "random"
+             else [None] * 4)
+        return self._rays_from_uniforms(u, n, gen.device)
+
+    def _rays_from_uniforms(self, u, n: int, device):
+        """The map of rays_on_device from its unit uniforms u (u[0], u[1]
+        the aperture's, u[2], u[3] the divergence cone's; unused by the
+        deterministic samplings)."""
+        def f32(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+        if self.sampling in ("hexapolar", "halton"):
+            # deterministic streams, computed on the host as the reference
+            if self.sampling == "hexapolar":
+                r_np, phi_np = self._hexapolar(n)
+            else:
+                r_np = (self.diameter / 2.0) * np.sqrt(halton_sequence(n, 2))
+                phi_np = 2.0 * np.pi * halton_sequence(n, 3)
+            r, phi = f32(r_np), f32(phi_np)
+        elif self.sampling == "random":
+            r = (self.diameter / 2.0) * torch.sqrt(u[0])
+            phi = _scaled(u[1], 0.0, 2.0 * math.pi)
+        else:
+            raise ValueError(f"unknown sampling {self.sampling!r}")
+        powers = torch.full((n,), self.power / n, dtype=_F32, device=device)
+        if self.profile == "gaussian":
+            if self.sampling == "hexapolar":
+                if self.waist <= 0.0:
+                    raise ValueError("profile='gaussian' needs waist > 0")
+                wgt = torch.exp(-2.0 * r * r / float(np.float32(
+                    self.waist ** 2)))
+                powers = self.power * wgt / torch.sum(wgt)
+            else:
+                r = self._gauss_radii(r, torch)
+        elif self.profile != "uniform":
+            raise ValueError(f"unknown profile {self.profile!r}")
+        fu, fv, fw = _frame_rows(self.direction, device)
+        origins = (f32(self.center) + r[:, None] * torch.cos(phi)[:, None] * fu
+                   + r[:, None] * torch.sin(phi)[:, None] * fv)
+        if self.divergence > 0.0:
+            if self.sampling == "halton":
+                z = f32(1.0 - halton_sequence(n, 5)
+                        * (1.0 - np.cos(self.divergence)))
+                ph = f32(2.0 * np.pi * halton_sequence(n, 7))
+            else:
+                z = _scaled(u[2], torch.cos(torch.tensor(
+                    self.divergence, dtype=_F32)), 1.0)
+                ph = _scaled(u[3], 0.0, 2.0 * math.pi)
+            s = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+            dirs = ((s * torch.cos(ph))[:, None] * fu
+                    + (s * torch.sin(ph))[:, None] * fv + z[:, None] * fw)
+        else:
+            dirs = fw.expand(n, 3).contiguous()
+        return origins.to(_F32), dirs.to(_F32), powers.to(_F32)
 
 
 @dataclasses.dataclass
@@ -339,6 +500,53 @@ class AreaSource:
         return _sample_wavelengths_np(rng, int(n or self.ray_count),
                                       self.wavelength)
 
+    def wavelengths_on_device(self, gen: torch.Generator,
+                              n: Optional[int] = None):
+        return _sample_wavelengths_dev(gen, int(n or self.ray_count),
+                                       self.wavelength)
+
+    def rays_on_device(self, gen: torch.Generator, n: Optional[int] = None):
+        """(origins, dirs, powers) f32 tensors of n rays on the generator's
+        device; 'random' draws u1..u4 (surface, then hemisphere)."""
+        n = int(n or self.ray_count)
+        u = (_uniforms(gen, n, 4) if self.sampling == "random"
+             else [None] * 4)
+        return self._rays_from_uniforms(u, n, gen.device)
+
+    def _rays_from_uniforms(self, u, n: int, device):
+        """The map of rays_on_device from its unit uniforms u1..u4 (halton:
+        the deterministic stream of bases 2, 3, 5, 7 instead)."""
+        fu, fv, fw = _frame_rows(self.direction, device)
+        if self.sampling == "halton":
+            u = [torch.as_tensor(halton_sequence(n, b).astype(np.float32),
+                                 device=device) for b in (2, 3, 5, 7)]
+        elif self.sampling != "random":
+            raise ValueError(f"unknown sampling {self.sampling!r}")
+        if self.width is not None:
+            wx, wy = self.width
+            a = wx * (u[0] - 0.5)
+            b = wy * (u[1] - 0.5)
+        else:
+            r = self.radius * torch.sqrt(u[0])
+            phi = 2.0 * math.pi * u[1]
+            a, b = r * torch.cos(phi), r * torch.sin(phi)
+        center = torch.as_tensor(np.asarray(self.center, np.float32),
+                                 device=device)
+        origins = center + a[:, None] * fu + b[:, None] * fv
+        # the local hemisphere direction, as _directions_local
+        ph = 2.0 * math.pi * u[3]
+        if self.emission == "lambertian":
+            z = torch.sqrt(u[2])  # pdf(z) = 2 z  ->  I ~ cos(theta)
+        elif self.emission == "isotropic":
+            z = u[2]
+        else:
+            raise ValueError(f"unknown emission {self.emission!r}")
+        s = torch.sqrt(torch.clamp_min(1.0 - z * z, 0.0))
+        dirs = ((s * torch.cos(ph))[:, None] * fu
+                + (s * torch.sin(ph))[:, None] * fv + z[:, None] * fw)
+        powers = torch.full((n,), self.power / n, dtype=_F32, device=device)
+        return origins.to(_F32), dirs.to(_F32), powers
+
 
 def light_source(center=(0, 0, 0), direction=(0, 0, 1), directivity=None,
                  power: float = 1.0, ray_count: int = 1000, **kw) -> LightSource:
@@ -350,5 +558,8 @@ def light_source(center=(0, 0, 0), direction=(0, 0, 1), directivity=None,
 
 
 def lambertian(azimuth, polar):
-    """cos(polar) directivity — a common reference directivity choice."""
+    """cos(polar) directivity — a common reference directivity choice
+    (numpy arrays, or tensors under rays_on_device)."""
+    if isinstance(polar, torch.Tensor):
+        return torch.clamp_min(torch.cos(polar), 0.0)
     return np.maximum(0.0, np.cos(polar))

@@ -1,16 +1,22 @@
 """Host-side trace driver.
 
-Port counterpart of lightpycl_tpu/tracer/engine.py: `TraceResult` and
-`Tracer` with `set_elements`, `trace` in its two single-device modes, the
-cfg resolution helpers (`_resolve_ray_len`, `_resolve_cull`,
-`_tune_splitting`, the has-flag resolution of `_check_polarization`) and
-`_package`.
+Port counterpart of lightpycl_tpu/tracer/engine.py: `TraceResult` (with the
+coherent / flux / time maps and the per-batch statistics) and `Tracer` with
+`set_elements`, `trace` in its two single-device modes, `trace_batched` in
+device mode, the cfg resolution and checks (`_resolve_ray_len`,
+`_resolve_cull`, `_tune_splitting`, the has-flag resolution of
+`_check_polarization`, `_check_flux_map`, `_check_time_bins`), `_package`
+and `get_surface_flux`.
 
   * 'device': the multi-bounce loop runs on the device with one host sync
     per bounce (the early-exit test); detector histogram and ledger come
     back, individual measured rays do not.
   * 'host': the same steps, harvesting measured rays (and optionally ray
     segments) after every bounce: the reference's per-iteration semantics.
+  * `trace_batched`: the mega-batch entry point; each batch is sampled on the
+    device from a generator that depends only on (seed, batch), traced in
+    device mode, and summed into float64 host accumulators, with an
+    optional checkpoint after every batch.
 
 The tracer runs on an explicit `device` (default CUDA; the CPU only when
 asked for). Features outside the ported core raise NotImplementedError
@@ -23,13 +29,16 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
+from lightpycl_tpu_torch import analysis
 from lightpycl_tpu_torch.geometry.mesh import GeoObject
+from lightpycl_tpu_torch.io import checkpoint
 from lightpycl_tpu_torch.materials import Material
 from lightpycl_tpu_torch.tracer import step as step_mod
 from lightpycl_tpu_torch.tracer.config import TraceConfig
@@ -37,6 +46,43 @@ from lightpycl_tpu_torch.tracer.rays import DetectorState, Ledger, RayBatch
 from lightpycl_tpu_torch.tracer.scene import Scene, build_scene
 
 log = logging.getLogger("lightpycl_tpu_torch")
+
+# DetectorState field -> its float64 accumulator's key in a trace_batched
+# checkpoint (the reference's names, so either package resumes the other's)
+_CKPT_KEYS = {"hist": "hist64", "per_detector": "per_det64",
+              "image": "image64", "image_amp": "image_amp64",
+              "tri_flux": "tri_flux64", "time_hist": "time64"}
+
+
+def _refuse_multi_device(mode: str, mesh) -> None:
+    if mode in ("multichip", "mesh2d") or mesh is not None:
+        what = f"mode={mode!r}" if mesh is None else "device meshes (mesh=)"
+        raise NotImplementedError(
+            f"{what} is not ported to lightpycl_tpu_torch yet "
+            "(ROADMAP A 7: parallel/ on torch.distributed)")
+
+
+def _check_coherent(cfg: TraceConfig) -> None:
+    if cfg.coherent and cfg.image_bins == 0:
+        raise ValueError(
+            "coherent=True accumulates the complex field on the image "
+            "plane: set image_bins (and image_center/image_normal/"
+            "image_halfwidth) too")
+
+
+def _opl_edges(cfg: TraceConfig):
+    """(time_bins + 1,) OPL bin edges of a time-resolved trace, else None."""
+    if cfg.time_bins <= 0:
+        return None
+    return np.linspace(cfg.opl_min, cfg.opl_max, cfg.time_bins + 1)
+
+
+def _no_measured_rays():
+    """The eight empty measured-ray columns of a trace without a harvest."""
+    return [np.zeros((0, 3), np.float32), np.zeros((0, 3), np.float32),
+            np.zeros((0,), np.float32), np.zeros((0,), np.int32),
+            np.zeros((0,), np.float32), np.zeros((0, 3), np.float32),
+            np.zeros((0,), np.float32), np.zeros((0,), np.float32)]
 
 
 def resolve_device(device) -> torch.device:
@@ -72,6 +118,18 @@ class TraceResult:
     wall_time: float
     segments: list                # [(starts, ends, alive)] if record_paths
     final_live_power: float
+    # coherent runs only (TraceConfig.coherent): (2, nb, nb) re/im field
+    # amplitude sums over measured rays
+    image_amp: Optional[np.ndarray] = None
+    # flux-map runs only: (T,) incident power per scene triangle, T the real
+    # triangle count in scene order (spatially sorted when cull is on)
+    tri_flux: Optional[np.ndarray] = None
+    # time-resolved runs only: (D, nt) measured power by arrival optical
+    # path length and the (nt + 1,) OPL bin edges (t = OPL / c)
+    time_hist: Optional[np.ndarray] = None
+    opl_edges: Optional[np.ndarray] = None
+    # trace_batched runs only: (B, D) measured power per batch per detector
+    per_batch_detector: Optional[np.ndarray] = None
     device: str = ""              # torch device the trace ran on
 
     @property
@@ -96,10 +154,54 @@ class TraceResult:
             raise KeyError(f"unknown detector {name!r}; have {self.detector_names}")
         return float(self.per_detector[self.detector_names.index(name)])
 
+    def detector_stderr(self, name: str) -> float:
+        """Monte-Carlo standard error of detector_power(name) from the
+        scatter of the per-batch totals (trace_batched runs with >= 2
+        batches): SE(sum_b m_b) = sqrt(B) * std(m_b, ddof=1)."""
+        if self.per_batch_detector is None:
+            raise ValueError(
+                "no per-batch statistics: run Tracer.trace_batched "
+                "(single traces have no independent replicas to measure "
+                "spread from)")
+        if name not in self.detector_names:
+            raise KeyError(f"unknown detector {name!r}; have {self.detector_names}")
+        m = self.per_batch_detector[:, self.detector_names.index(name)]
+        B = m.shape[0]
+        if B < 2:
+            raise ValueError(
+                f"need >= 2 batches for a spread estimate, have {B}")
+        return float(np.sqrt(B) * np.std(m, ddof=1))
+
+    def detector_time_histogram(self, name: str):
+        """(opl_edges (nt+1,), power (nt,)) time-of-flight histogram of the
+        named detector (TraceConfig.time_bins runs)."""
+        if self.time_hist is None:
+            raise ValueError("not a time-resolved trace: set "
+                             "TraceConfig(time_bins=..., opl_min=..., "
+                             "opl_max=...)")
+        if name not in self.detector_names:
+            raise KeyError(f"unknown detector {name!r}; have {self.detector_names}")
+        return self.opl_edges, self.time_hist[self.detector_names.index(name)]
+
     def power_conservation_error(self) -> float:
         l = self.ledger
         acc = l["measured"] + l["absorbed"] + l["escaped"] + l["culled"]
         return abs(l["emitted"] - acc - self.final_live_power) / max(l["emitted"], 1e-30)
+
+    @property
+    def image_complex(self) -> np.ndarray:
+        """(nb, nb) complex field on the image plane (coherent runs)."""
+        if self.image_amp is None:
+            raise ValueError("not a coherent trace: set "
+                             "TraceConfig(coherent=True, image_bins=...)")
+        return self.image_amp[0] + 1j * self.image_amp[1]
+
+    @property
+    def image_coherent(self) -> np.ndarray:
+        """(nb, nb) interference intensity |sum_rays sqrt(P) e^{i phi}|^2 per
+        pixel (the fringe pattern; `image` stays the incoherent sum)."""
+        a = self.image_complex
+        return a.real ** 2 + a.imag ** 2
 
 
 class Tracer:
@@ -155,13 +257,9 @@ class Tracer:
         `source` is a LightSource / CollimatedSource / AreaSource (or None
         if `rays` is given). Remaining kwargs override TraceConfig fields,
         mirroring the reference's iterative_tracer(...) signature."""
-        if mode in ("multichip", "mesh2d"):
-            raise NotImplementedError(
-                f"mode={mode!r} is not ported to lightpycl_tpu_torch yet")
+        _refuse_multi_device(mode, mesh)
         if mode not in ("host", "device"):
             raise ValueError(f"unknown mode {mode!r}")
-        if mesh is not None:
-            raise NotImplementedError("device meshes (mesh=) are not ported")
         if profile_logdir is not None:
             raise NotImplementedError("profile_logdir is not ported")
         cfg = self.cfg
@@ -173,8 +271,11 @@ class Tracer:
             self.set_elements(elements)
         if self.scene is None:
             raise ValueError("no scene: pass `elements` or call set_elements()")
+        _check_coherent(cfg)
         cfg = self._tune_splitting(cfg)
         cfg = self._check_polarization(cfg)
+        self._check_flux_map(cfg, mode)
+        self._check_time_bins(cfg)
         step_mod.require_core(cfg)
         if rays is None:
             origins, dirs, powers = source.sample()
@@ -192,9 +293,7 @@ class Tracer:
             self.set_elements(self.elements, spatial_sort=True)
         C = rays.capacity
         emitted = float(torch.sum(torch.where(rays.alive, rays.power, 0.0)))
-        det = DetectorState.zeros(cfg.hist_azimuth_bins, cfg.hist_polar_bins,
-                                  max(len(self.detector_names), 1),
-                                  cfg.image_bins, device=self.device)
+        det = self._detector_zeros(cfg)
         led = Ledger.start(emitted, device=self.device)
         log.info(
             "trace start: %d rays (capacity %d), %d triangles, %d "
@@ -212,9 +311,191 @@ class Tracer:
         raise NotImplementedError(
             "trace_spectral is not ported to lightpycl_tpu_torch yet")
 
-    def trace_batched(self, *args, **kwargs):
-        raise NotImplementedError(
-            "trace_batched is not ported to lightpycl_tpu_torch yet")
+    def _detector_zeros(self, cfg: TraceConfig) -> DetectorState:
+        return DetectorState.zeros(
+            cfg.hist_azimuth_bins, cfg.hist_polar_bins,
+            max(len(self.detector_names), 1), cfg.image_bins,
+            coherent=cfg.coherent,
+            n_tris=self.scene.num_triangles_padded if cfg.flux_map else 0,
+            time_bins=cfg.time_bins, device=self.device)
+
+    def trace_batched(self, source, total_rays: int, batch_size: int,
+                      elements: Optional[Sequence[GeoObject]] = None,
+                      checkpoint_path: Optional[str] = None,
+                      seed: int = 0, max_batches: Optional[int] = None,
+                      mode: str = "device", mesh=None,
+                      capacity: Optional[int] = None,
+                      **cfg_overrides) -> TraceResult:
+        """Mega-batch trace (BASELINE configs[3]): stream `total_rays`
+        through the device in `batch_size` chunks sampled on the device
+        (`source.rays_on_device` / `wavelengths_on_device`, or its combined
+        `batch_on_device`). Within a batch the accumulators are f32 on the
+        device; across batches the detector maps and the ledger are summed
+        on the host in float64. Batch b draws only from generators seeded
+        from (seed, b), so with `checkpoint_path` (state saved after every
+        batch) an interrupted run resumes at the next batch and ends with
+        the same bits as an uninterrupted one. `max_batches` stops after
+        that many batches of this call. `capacity` (default batch_size)
+        gives split-heavy scenes headroom, as in trace(capacity=...).
+        Only mode='device' is ported."""
+        _refuse_multi_device(mode, mesh)
+        if mode != "device":
+            raise ValueError(f"trace_batched mode must be 'device', "
+                             f"'multichip' or 'mesh2d', got {mode!r}")
+        cfg = self.cfg.replace(**cfg_overrides) if cfg_overrides else self.cfg
+        if elements is not None:
+            self.set_elements(elements)
+        if self.scene is None:
+            raise ValueError("no scene: pass `elements` or call set_elements()")
+        _check_coherent(cfg)
+        cfg = self._tune_splitting(cfg)
+        cfg = self._check_polarization(cfg)
+        self._check_flux_map(cfg, mode)
+        self._check_time_bins(cfg)
+        step_mod.require_core(cfg)
+        dev = self.device
+        if cfg.cull is None:
+            # auto-cull from a small device sample of the source's bundle
+            _, d_s, _ = source.rays_on_device(
+                step_mod.make_generator(dev, seed ^ 0xC011),
+                min(2048, batch_size))
+            cfg = self._resolve_cull(cfg, mode, dirs=d_s.cpu().numpy())
+        center = getattr(source, "center", None)
+        cfg = self._resolve_ray_len(
+            cfg, origins=None if center is None else np.asarray(
+                center, np.float64).reshape(1, 3))
+        if cfg.cull and not self._scene_sorted:
+            self.set_elements(self.elements, spatial_sort=True)
+        n_batches = max(1, total_rays // batch_size)
+        if total_rays != n_batches * batch_size:
+            log.warning(
+                "trace_batched: tracing %d rays (%d batches x %d), not the "
+                "requested %d (make total_rays a multiple of batch_size)",
+                n_batches * batch_size, n_batches, batch_size, total_rays)
+        zeros = self._detector_zeros(cfg)
+        acc = {f: np.zeros(tuple(getattr(zeros, f).shape))
+               for f in DetectorState._fields}
+        per_batch: list = []  # (D,) measured power per completed batch
+        led64 = np.zeros(5)  # emitted, measured, absorbed, escaped, culled
+        start_batch = 0
+        if checkpoint_path is not None:
+            checkpoint_path = checkpoint.normalize_path(checkpoint_path)
+            if os.path.exists(checkpoint_path):
+                extra = checkpoint.load_state(checkpoint_path,
+                                              device=dev)["extra"]
+                for f, key in _CKPT_KEYS.items():
+                    if key in extra:
+                        acc[f] = np.asarray(extra[key])
+                pb = extra.get("per_batch")
+                if pb is not None and np.asarray(pb).size:
+                    per_batch = [row for row in np.asarray(pb)]
+                led64 = np.asarray(extra["led64"])
+                start_batch = int(extra.get("next_batch", 0))
+                log.info("resuming batched trace at batch %d", start_batch)
+
+        def assemble(b):
+            gen_rays = step_mod.make_generator(dev, seed, b, 0)
+            if hasattr(source, "batch_on_device"):
+                # one draw gives index-coherent rays, wavelengths, Stokes
+                o, d, p, wl, st = source.batch_on_device(gen_rays, batch_size)
+            else:
+                o, d, p = source.rays_on_device(gen_rays, batch_size)
+                wl = (source.wavelengths_on_device(
+                    step_mod.make_generator(dev, seed, b, 1), batch_size)
+                    if hasattr(source, "wavelengths_on_device") else None)
+                st = getattr(source, "stokes", None)
+            return RayBatch.from_arrays(
+                o, d, p * (1.0 / n_batches), ior_env=cfg.ior_env,
+                wavelengths=wl, stokes=st, capacity=capacity, device=dev)
+
+        def consume(b, det_b, led_b):
+            # one transfer of every accumulator and the ledger
+            parts = list(det_b) + [torch.stack(list(led_b))]
+            host = torch.cat([a.reshape(-1) for a in parts]).cpu().numpy()
+            host = np.split(host.astype(np.float64),
+                            np.cumsum([a.numel() for a in parts])[:-1])
+            for f, h in zip(DetectorState._fields, host):
+                acc[f] += h.reshape(acc[f].shape)
+            per_batch.append(host[1])  # this batch's per_detector
+            led64[:] += host[-1]
+            if checkpoint_path is not None:
+                checkpoint.save_state(
+                    checkpoint_path, **{key: acc[f]
+                                        for f, key in _CKPT_KEYS.items()},
+                    per_batch=np.asarray(per_batch), led64=led64,
+                    next_batch=b + 1)
+            log.info("batch %d/%d done", b + 1, n_batches)
+
+        self._sync()
+        t0 = time.perf_counter()
+        done = 0
+        batch_iters: list = []
+        pending = None  # (b, det_b, led_b): read back once b + 1 is queued
+        for b in range(start_batch, n_batches):
+            if max_batches is not None and done >= max_batches:
+                break
+            done += 1
+            rays = assemble(b)
+            led_b = Ledger.start(torch.sum(rays.power * rays.alive),
+                                 device=dev)
+            rays, det_b, led_b, iters_b = step_mod.trace_loop(
+                self.scene, rays, zeros, led_b, cfg, cfg.trace_iterations,
+                rng_words=(seed, b, 0x5757))
+            batch_iters.append(iters_b)
+            # rays still alive when the batch retires are booked as culled
+            leftover = torch.sum(torch.where(rays.alive, rays.power, 0.0))
+            led_b = led_b._replace(culled=led_b.culled + leftover)
+            if pending is not None:
+                consume(*pending)
+            pending = (b, det_b, led_b)
+        if pending is not None:
+            consume(*pending)
+        wall = time.perf_counter() - t0
+        slots = (capacity or batch_size) * sum(batch_iters)
+        result = TraceResult(
+            *_no_measured_rays(),
+            hist=acc["hist"], per_detector=acc["per_detector"],
+            image=acc["image"],
+            detector_names=list(self.detector_names),
+            ledger=dict(zip(Ledger._fields, led64.tolist())),
+            iterations_run=max(batch_iters, default=0),
+            rays_traced=slots,
+            intersection_tests=slots * self.num_triangles,
+            wall_time=wall, segments=[], final_live_power=0.0,
+            image_amp=(acc["image_amp"] if acc["image_amp"].shape[1] > 1
+                       else None),
+            tri_flux=(acc["tri_flux"][:self.num_triangles]
+                      if cfg.flux_map else None),
+            time_hist=acc["time_hist"] if cfg.time_bins > 0 else None,
+            opl_edges=_opl_edges(cfg),
+            per_batch_detector=np.asarray(per_batch) if per_batch else None,
+            device=str(dev))
+        self.last_result = result
+        return result
+
+    def _check_time_bins(self, cfg: TraceConfig) -> None:
+        if cfg.time_bins > 0 and not (cfg.opl_max > cfg.opl_min):
+            raise ValueError(
+                "time_bins > 0 needs an OPL window: set opl_max > opl_min "
+                "(OPL = sum n * length; t = OPL / c)")
+
+    def _check_flux_map(self, cfg: TraceConfig, mode: str) -> None:
+        """flux_map semantics are exact only when every intersect hit is a
+        real surface arrival with global triangle indices (the reference's
+        checks, worded as it words them)."""
+        if not cfg.flux_map:
+            return
+        if mode == "mesh2d":
+            raise ValueError(
+                "flux_map=True needs global triangle indices (the scene "
+                "replicated): use mode='host'/'device'/'multichip', not "
+                "'mesh2d'")
+        if cfg.has_scattering or cfg.has_fluorescence or cfg.has_grin:
+            raise ValueError(
+                "flux_map=True is undefined with volume events (scattering/"
+                "fluorescence/GRIN): a ray that scatters mid-flight never "
+                "arrives at the facet intersect() reported, so the "
+                "per-facet incident flux would overcount")
 
     def _check_polarization(self, cfg: TraceConfig) -> TraceConfig:
         """The reference's has-flag resolution from the scene materials
@@ -340,13 +621,16 @@ class Tracer:
                 self.scene, rays, det, led, cfg, cfg.trace_iterations)
             self._sync()
             wall = time.perf_counter() - t0
-            return self._package(rays_out, det, led, [], [], iters, C, wall)
+            return self._package(rays_out, det, led, [], [], iters, C, wall,
+                                 cfg)
         harvested = []
         segments = []
         iters = 0
         for it in range(cfg.trace_iterations):
+            gen = (step_mod.make_generator(self.device, cfg.seed, it)
+                   if cfg.needs_rng else None)
             rays, det, led, aux = step_mod.trace_step(
-                self.scene, rays, det, led, cfg)
+                self.scene, rays, det, led, cfg, gen=gen)
             iters += 1
             # one transfer of the per-step scalars
             counts = torch.stack([aux.measured_count, aux.live_count]).cpu()
@@ -370,18 +654,15 @@ class Tracer:
         self._sync()
         wall = time.perf_counter() - t0
         return self._package(rays, det, led, harvested, segments, iters, C,
-                             wall)
+                             wall, cfg)
 
     def _package(self, rays, det, led, harvested, segments, iters, C,
-                 wall) -> TraceResult:
+                 wall, cfg) -> TraceResult:
         if harvested:
             cols = [np.concatenate([h[k] for h in harvested])
                     for k in range(8)]
         else:
-            cols = [np.zeros((0, 3), np.float32), np.zeros((0, 3), np.float32),
-                    np.zeros((0,), np.float32), np.zeros((0,), np.int32),
-                    np.zeros((0,), np.float32), np.zeros((0, 3), np.float32),
-                    np.zeros((0,), np.float32), np.zeros((0,), np.float32)]
+            cols = _no_measured_rays()
         live_power = float(torch.sum(torch.where(rays.alive, rays.power,
                                                  0.0)))
         real_tris = self.num_triangles
@@ -398,6 +679,14 @@ class Tracer:
             wall_time=wall,
             segments=segments,
             final_live_power=live_power,
+            image_amp=(det.image_amp.cpu().numpy()
+                       if det.image_amp.shape[1] > 1 else None),
+            # (1,) zeros = flux_map disabled; real runs are padded past 1
+            tri_flux=(det.tri_flux.cpu().numpy()[:real_tris]
+                      if det.tri_flux.shape[0] > 1 else None),
+            time_hist=(det.time_hist.cpu().numpy()
+                       if cfg.time_bins > 0 else None),
+            opl_edges=_opl_edges(cfg),
             device=str(self.device),
         )
 
@@ -411,6 +700,20 @@ class Tracer:
 
     def get_detector_histogram(self):
         return self._require_result().hist
+
+    def get_surface_flux(self):
+        """Irradiance map of the last flux-map trace (analysis.surface_flux
+        on TraceResult.tri_flux): per-facet incident power / irradiance and
+        per-element totals. Needs TraceConfig(flux_map=True)."""
+        r = self._require_result()
+        if r.tri_flux is None:
+            raise ValueError(
+                "no flux map on the last trace: set "
+                "TraceConfig(flux_map=True) (host/device modes)")
+        names = [getattr(e, "name", None) or i
+                 for i, e in enumerate(self.elements)]
+        return analysis.surface_flux(r.tri_flux, self.scene,
+                                     element_names=names)
 
     def get_power_ledger(self):
         return dict(self._require_result().ledger)

@@ -119,11 +119,19 @@ class RayBatch(NamedTuple):
                     stokes=None,
                     device: torch.device | str = "cuda") -> "RayBatch":
         """Build a padded batch on `device` from host arrays (cast to f32
-        on the host, exactly as the reference casts them)."""
+        on the host, exactly as the reference casts them) or from tensors
+        (cast where they lie, then moved: the device samplers' path)."""
         device = torch.device(device)
 
         def f32(a):
+            if isinstance(a, torch.Tensor):
+                return a.to(device=device, dtype=_F32).contiguous()
             return tensor_from_array(np.asarray(a, np.float32), device)
+
+        def broadcast(a, size):
+            if isinstance(a, torch.Tensor):
+                return f32(a.expand(size))
+            return f32(np.broadcast_to(np.asarray(a, np.float32), (size,)))
 
         o, d, p = f32(origins), f32(dirs), f32(powers)
         n = o.shape[0]
@@ -133,8 +141,7 @@ class RayBatch(NamedTuple):
         if wavelengths is None:
             w = torch.full((n,), D_LINE_UM, dtype=_F32, device=device)
         else:
-            w = f32(np.broadcast_to(np.asarray(wavelengths, np.float32),
-                                    (n,)))
+            w = broadcast(wavelengths, n)
         pad = c - n
         if pad:
             o = torch.cat([o, torch.zeros((pad, 3), dtype=_F32,
@@ -153,14 +160,12 @@ class RayBatch(NamedTuple):
         else:
             sf = []
             for x in stokes:
-                x = np.asarray(x, np.float32)
-                if x.ndim == 0:
-                    sf.append(torch.full((c,), float(x), dtype=_F32,
-                                         device=device))
+                if np.ndim(x) == 0:  # a scalar fills the padding slots too
+                    sf.append(broadcast(x, c))
                 else:
-                    x = np.concatenate([np.broadcast_to(x, (n,)),
-                                        np.zeros((pad,), np.float32)])
-                    sf.append(f32(x))
+                    sf.append(torch.cat([
+                        broadcast(x, n),
+                        torch.zeros((pad,), dtype=_F32, device=device)]))
 
         def full(v):
             return torch.full((c,), v, dtype=_F32, device=device)
@@ -177,27 +182,39 @@ class RayBatch(NamedTuple):
 
 
 class DetectorState(NamedTuple):
-    """Measurement accumulators, as in the reference (the coherent image,
-    flux map and time histogram stay at their disabled shapes here)."""
+    """Measurement accumulators, as in the reference. The optional maps keep
+    their disabled shapes unless switched on: image_amp (2, 1, 1) without
+    TraceConfig.coherent, tri_flux (1,) without flux_map, time_hist (1, 1)
+    without time_bins."""
 
     hist: torch.Tensor          # (n_azimuth, n_polar) f32 power histogram
     per_detector: torch.Tensor  # (D,) f32 total power per measure surface
     image: torch.Tensor         # (image_bins, image_bins) f32 planar map
-    image_amp: torch.Tensor     # (2, 1, 1) zeros (coherent: not ported)
-    tri_flux: torch.Tensor      # (1,) zeros (flux_map: not ported)
-    time_hist: torch.Tensor     # (1, 1) zeros (time_bins: not ported)
+    image_amp: torch.Tensor     # (2, nb, nb) f32 coherent field (re, im)
+    tri_flux: torch.Tensor      # (T_pad,) f32 per-triangle incident power
+    time_hist: torch.Tensor     # (D, time_bins) f32 power by arrival OPL
 
     @staticmethod
     def zeros(n_az: int, n_pol: int, n_detectors: int,
-              image_bins: int = 0,
+              image_bins: int = 0, coherent: bool = False,
+              n_tris: int = 0, time_bins: int = 0,
               device: torch.device | str = "cuda") -> "DetectorState":
         nb = max(image_bins, 1)
+        na = nb if (coherent and image_bins > 0) else 1
+        nd_t = max(n_detectors, 1) if time_bins > 0 else 1
 
         def z(*shape):
             return torch.zeros(shape, dtype=_F32, device=device)
 
         return DetectorState(z(n_az, n_pol), z(max(n_detectors, 1)),
-                             z(nb, nb), z(2, 1, 1), z(1), z(1, 1))
+                             z(nb, nb), z(2, na, na), z(max(n_tris, 1)),
+                             z(nd_t, max(time_bins, 1)))
+
+    @staticmethod
+    def from_reference(obj, device) -> "DetectorState":
+        """The port's copy of a reference DetectorState, field by field."""
+        return DetectorState(*(tensor_from_array(getattr(obj, f), device)
+                               for f in DetectorState._fields))
 
 
 class Ledger(NamedTuple):
@@ -212,10 +229,12 @@ class Ledger(NamedTuple):
 
     @staticmethod
     def start(emitted, device: torch.device | str = "cuda") -> "Ledger":
+        """A fresh ledger; `emitted` is a number or a 0-dim tensor (a device
+        tensor stays on the device: no host sync)."""
         def z():
             return torch.zeros((), dtype=_F32, device=device)
 
-        return Ledger(torch.tensor(emitted, dtype=_F32, device=device),
+        return Ledger(torch.as_tensor(emitted, dtype=_F32, device=device),
                       z(), z(), z(), z())
 
     def accounted(self) -> torch.Tensor:

@@ -12,17 +12,22 @@ that no TraceConfig flag gates (Beer-Lambert attenuation, Cauchy B and C
 dispersion, mirror / refractive / terminator / measure / beamsplitter
 materials, polarizer and waveplate absorbed in the unpolarized model, the
 split and no-split child layouts, the absorbed / escaped / measured sums),
-`accumulate_detector(_arrays)` with `image_flat_indices`, `compact` (no-split,
-'topk', 'stream'), `trace_step` with the measured-ray front compaction, and
-the device loop. Every branch a flag gates (polarization, coatings, metals,
-gratings, diffuse, volume scattering, fluorescence, roughness, GRIN,
-analytic surfaces, path tracking, roulette, coherent / flux / time maps)
-raises NotImplementedError here and waits for a later port.
+`accumulate_detector(_arrays)` with `image_flat_indices` and the optional
+maps (coherent field, time-of-flight histogram, per-facet flux), Russian
+`roulette`, `compact` (no-split, 'topk', 'stream'), `trace_step` with the
+measured-ray front compaction, and the device loop. Every branch a flag
+gates that is still unported (polarization, coatings, metals, gratings,
+diffuse, volume scattering, fluorescence, roughness, GRIN, analytic
+surfaces, path tracking) raises NotImplementedError here and waits for a
+later port.
 
 Determinism: the detector scatter-adds are a sort-based segmented sum with
 a fixed association (`bincount_sorted`, no float atomics), so the same
 inputs give the same bits; top-k is a stable descending sort, so ties keep
-the lower slot first as jax.lax.top_k does.
+the lower slot first as jax.lax.top_k does. Random draws (roulette) come
+from a torch.Generator per bounce, seeded from (cfg.seed, bounce) as the
+reference folds the bounce index into its key (`make_generator`); torch's
+streams are not JAX's, so the tests feed `roulette` JAX's own uniforms.
 """
 
 from __future__ import annotations
@@ -57,8 +62,6 @@ _GATED_FLAGS = (
     ("has_grin", "gradient-index media (has_grin)"),
     ("has_analytic", "analytic quadric surfaces (has_analytic)"),
     ("track_paths", "path tracking (track_paths)"),
-    ("coherent", "coherent imaging (coherent)"),
-    ("flux_map", "flux maps (flux_map)"),
 )
 
 
@@ -69,14 +72,18 @@ def require_core(cfg: TraceConfig) -> None:
         if getattr(cfg, flag):
             raise NotImplementedError(
                 f"{feature} is not ported to lightpycl_tpu_torch yet")
-    if cfg.time_bins > 0:
-        raise NotImplementedError(
-            "time-of-flight histograms (time_bins) are not ported to "
-            "lightpycl_tpu_torch yet")
-    if cfg.roulette_threshold > 0.0:
-        raise NotImplementedError(
-            "Russian roulette (roulette_threshold > 0) is not ported to "
-            "lightpycl_tpu_torch yet")
+
+
+def make_generator(device, *words: int) -> torch.Generator:
+    """A torch.Generator on `device` whose stream depends only on the
+    integers `words` (e.g. (seed, bounce) or (seed, batch, bounce)): the
+    port's counterpart of folding indices into a JAX key."""
+    seed = np.random.SeedSequence(
+        [int(w) & 0xFFFFFFFFFFFFFFFF for w in words]).generate_state(
+            1, np.uint64)[0]
+    g = torch.Generator(device=torch.device(device))
+    g.manual_seed(int(seed) & 0x7FFFFFFFFFFFFFFF)
+    return g
 
 
 # --------------------------------------------------------------------------
@@ -369,11 +376,18 @@ def image_flat_indices(hit_point, cfg: TraceConfig):
 
 
 def accumulate_detector_arrays(det: DetectorState, hit_point, dirs,
-                               measured_power, det_id,
-                               cfg: TraceConfig) -> DetectorState:
+                               measured_power, det_id, cfg: TraceConfig,
+                               opl=None, wavelength=None, tri=None,
+                               incident_power=None) -> DetectorState:
     """Scatter-add measured power into the (azimuth x polar) histogram,
     per-detector totals and the optional planar image, from bare arrays
-    (measured_power is zero on unmeasured slots)."""
+    (measured_power is zero on unmeasured slots). With cfg.coherent (and
+    opl, wavelength given) also the complex field sqrt(P) e^{i 2 pi
+    OPL/lambda} into image_amp; with cfg.time_bins (and opl) the measured
+    power by arrival OPL into time_hist; with cfg.flux_map (and tri,
+    incident_power) the arriving power at each hit triangle into tri_flux.
+    Every map is a `bincount_sorted` with one extra bin for what falls
+    outside it."""
     n_az, n_pol = det.hist.shape
     if cfg.hist_mode == "direction":
         v = dirs
@@ -393,21 +407,67 @@ def accumulate_detector_arrays(det: DetectorState, hit_point, dirs,
     per_det = det.per_detector + bincount_sorted(
         did, measured_power, det.per_detector.shape[0])
 
-    image = det.image
+    image, image_amp = det.image, det.image_amp
     if cfg.image_bins > 0:
         nb = cfg.image_bins
         # the extra bin nb * nb takes every hit outside the grid
+        flat_img = image_flat_indices(hit_point, cfg)
         image = image + bincount_sorted(
-            image_flat_indices(hit_point, cfg), measured_power,
-            nb * nb + 1)[:-1].reshape(nb, nb)
-    return det._replace(hist=hist, per_detector=per_det, image=image)
+            flat_img, measured_power, nb * nb + 1)[:-1].reshape(nb, nb)
+        if cfg.coherent and opl is not None and wavelength is not None:
+            re, im = coherent_amplitudes(measured_power, opl, wavelength)
+            image_amp = image_amp + torch.stack([
+                bincount_sorted(flat_img, a, nb * nb + 1)[:-1]
+                for a in (re, im)]).reshape(image_amp.shape)
+
+    time_hist = det.time_hist
+    if cfg.time_bins > 0 and opl is not None:
+        # out-of-range arrivals clamp into the edge bins, so the histogram
+        # total stays exactly the measured power
+        nt = time_hist.shape[1]
+        span = max(cfg.opl_max - cfg.opl_min, 1e-30)
+        it = torch.clamp(((opl - cfg.opl_min) / span * nt).to(torch.int32),
+                         0, nt - 1)
+        time_hist = time_hist + bincount_sorted(
+            did * nt + it, measured_power,
+            time_hist.numel()).reshape(time_hist.shape)
+
+    tri_flux = det.tri_flux
+    if cfg.flux_map and tri is not None and incident_power is not None:
+        # misses (tri == -1) go to the extra bin T, which is dropped
+        T = tri_flux.shape[0]
+        idx = torch.where(tri >= 0, tri, T)
+        tri_flux = tri_flux + bincount_sorted(idx, incident_power,
+                                              T + 1)[:-1]
+    return DetectorState(hist, per_det, image, image_amp, tri_flux,
+                         time_hist)
+
+
+def coherent_amplitudes(measured_power, opl, wavelength):
+    """(re, im) of sqrt(P) e^{i 2 pi OPL / lambda} per ray, the phase from
+    the fractional part of OPL / lambda (whole waves drop out)."""
+    amp = torch.sqrt(torch.clamp_min(measured_power, 0.0))
+    turns = opl / wavelength
+    phase = 2.0 * math.pi * (turns - torch.floor(turns))
+    return amp * torch.cos(phase), amp * torch.sin(phase)
 
 
 def accumulate_detector(det: DetectorState, sh: ShadeOut, rays: RayBatch,
-                        cfg: TraceConfig) -> DetectorState:
-    """Detector update of one bounce (arrival directions = parent rays')."""
+                        cfg: TraceConfig, tri=None) -> DetectorState:
+    """Detector update of one bounce (arrival directions = parent rays').
+    `tri` (the intersect result) feeds only the flux map, with the arriving
+    power: the parent's power times the segment's Beer-Lambert
+    transmission."""
+    C = sh.hit_point.shape[0]
+    inc = None
+    if cfg.flux_map and tri is not None:
+        inc = torch.where((tri >= 0) & rays.alive, rays.power * sh.atten,
+                          0.0)
     return accumulate_detector_arrays(det, sh.hit_point, rays.d,
-                                      sh.measured_power, sh.det_id, cfg)
+                                      sh.measured_power, sh.det_id, cfg,
+                                      opl=sh.child_opl[:C],
+                                      wavelength=rays.wavelength,
+                                      tri=tri, incident_power=inc)
 
 
 # --------------------------------------------------------------------------
@@ -427,6 +487,23 @@ def _child_batch(sh: ShadeOut, power, alive, pick) -> RayBatch:
         path=pick(sh.child_path, 0.0), scat=pick(sh.child_scat, 0.0),
         scat_g=pick(sh.child_scat_g, 0.0),
         medium=pick(sh.child_medium, -1.0))
+
+
+def roulette(sh: ShadeOut, cfg: TraceConfig, u: torch.Tensor):
+    """Russian-roulette termination (cfg.roulette_threshold > 0), given the
+    unit uniforms `u`: children with 0 < power < threshold survive with
+    probability power / threshold and are boosted to exactly the threshold
+    (unbiased). The power delta (kills minus boosts) is returned for the
+    ledger's 'culled' (it can be negative), so conservation stays exact."""
+    thr = cfg.roulette_threshold
+    weak = sh.child_alive & (sh.child_power < thr)
+    p_survive = torch.clamp(sh.child_power / thr, 0.0, 1.0)
+    survive = u < p_survive
+    new_power = torch.where(weak, torch.where(survive, thr, 0.0),
+                            sh.child_power)
+    delta = torch.sum(torch.where(weak, sh.child_power - new_power, 0.0))
+    return sh._replace(child_power=new_power,
+                       child_alive=sh.child_alive & (new_power > 0.0)), delta
 
 
 def compact(sh: ShadeOut, capacity: int, cfg: TraceConfig):
@@ -522,18 +599,28 @@ def _measured_aux(sh: ShadeOut, rays: RayBatch, new_rays: RayBatch):
 
 
 def trace_step(scene: Scene, rays: RayBatch, det: DetectorState, led: Ledger,
-               cfg: TraceConfig, with_aux: bool = True):
-    """One bounce: (reorder,) intersect, shade, measure, compact, ledger.
-    Returns (rays, det, led, aux); aux is None when with_aux is False (the
-    device loop, where the reference's compiler drops it as dead code)."""
+               cfg: TraceConfig, with_aux: bool = True,
+               gen: torch.Generator | None = None):
+    """One bounce: (reorder,) intersect, shade, measure, (roulette,)
+    compact, ledger. `gen` draws the roulette uniforms and is needed only
+    when cfg.needs_rng. Returns (rays, det, led, aux); aux is None when
+    with_aux is False (the device loop, where the reference's compiler
+    drops it as dead code)."""
     require_core(cfg)
     if cfg.cull:
         rays = reorder_rays(scene, rays)
     t, tri = intersect(scene, rays.o, rays.d, cfg, alive=rays.alive)
     sh = shade(scene, rays, t, tri, cfg)
-    det = accumulate_detector(det, sh, rays, cfg)
+    det = accumulate_detector(det, sh, rays, cfg, tri=tri)
+    rr_delta = 0.0
+    if cfg.roulette_threshold > 0.0:
+        if gen is None:
+            raise ValueError("roulette_threshold > 0 requires a generator")
+        u = torch.rand(sh.child_power.shape, generator=gen, dtype=_F32,
+                       device=sh.child_power.device)
+        sh, rr_delta = roulette(sh, cfg, u)
     new_rays, culled = compact(sh, rays.capacity, cfg)
-    culled = culled + sh.policy_dropped
+    culled = culled + rr_delta + sh.policy_dropped
     led = Ledger(
         emitted=led.emitted,
         measured=led.measured + torch.sum(sh.measured_power),
@@ -546,16 +633,21 @@ def trace_step(scene: Scene, rays: RayBatch, det: DetectorState, led: Ledger,
 
 
 def trace_loop(scene: Scene, rays: RayBatch, det: DetectorState, led: Ledger,
-               cfg: TraceConfig, iterations: int):
+               cfg: TraceConfig, iterations: int, rng_words=None):
     """The whole fixed-depth trace, one host sync per bounce for the early
     exit: stop once accounted power reaches cfg.dissipation_target of the
     emitted power, compared in float32 as the reference's while_loop does,
-    so the bounce count matches. Returns (rays, det, led, iterations_run)."""
+    so the bounce count matches. Bounce i draws from
+    make_generator(*rng_words, i) (rng_words defaults to (cfg.seed,)).
+    Returns (rays, det, led, iterations_run)."""
+    words = (cfg.seed,) if rng_words is None else tuple(rng_words)
     target = torch.tensor(cfg.dissipation_target, dtype=_F32,
                           device=led.emitted.device)
     i = 0
     while i < iterations and bool(led.accounted() < target * led.emitted):
+        gen = (make_generator(rays.device, *words, i) if cfg.needs_rng
+               else None)
         rays, det, led, _ = trace_step(scene, rays, det, led, cfg,
-                                       with_aux=False)
+                                       with_aux=False, gen=gen)
         i += 1
     return rays, det, led, i

@@ -43,6 +43,29 @@ SCRIPT = textwrap.dedent("""
                                            mode=mode)
         assert abs(res.ledger["measured"] - 0.9) < 1e-3, res.ledger
     CL_Tracer(device="cpu").iterative_tracer(src, els, trace_iterations=3)
+    # trace_batched with a checkpoint, and a ray file replayed
+    import os, tempfile
+    from lightpycl_tpu_torch.io import (RayFileSource, load_state,
+                                        save_measured_rayfile)
+    bundle = P.CollimatedSource(center=(0, 0, 3), direction=(0, 0, -1),
+                                diameter=1.5)
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "run")
+        res = P.Tracer(device="cpu").trace_batched(
+            bundle, 2 * 256, 256, elements=els, checkpoint_path=ck,
+            trace_iterations=3, time_bins=4, opl_min=10.0, opl_max=14.0,
+            flux_map=True, roulette_threshold=1e-4)
+        assert abs(res.ledger["measured"] - 0.9) < 2e-2, res.ledger
+        assert int(load_state(ck, device="cpu")["extra"]["next_batch"]) == 2
+        host = P.Tracer(device="cpu").trace(src, els, trace_iterations=3)
+        path = os.path.join(tmp, "dome.lpr")
+        save_measured_rayfile(path, host, detector="dome", flip=True)
+        replay = RayFileSource(path)
+        o, d, p = replay.sample()
+        assert len(p) == len(host.measured_power)
+        o, d, p = replay.rays_on_device(
+            P.tracer.step.make_generator("cpu", 0), 64)
+        assert o.shape == (64, 3)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "lightpycl_tpu"))
     assert not leaked, leaked

@@ -272,8 +272,7 @@ def test_unported_branches_raise():
     tri = torch.full((pr.capacity,), -1, dtype=torch.int32)
     for kw in (dict(polarization=True), dict(has_gratings=True),
                dict(has_coatings=True), dict(has_metals=True),
-               dict(has_diffuse=True), dict(has_roughness=True),
-               dict(time_bins=4), dict(roulette_threshold=0.1)):
+               dict(has_diffuse=True), dict(has_roughness=True)):
         with pytest.raises(NotImplementedError):
             S.shade(ps, pr, t, tri, pcfg.replace(**kw))
 

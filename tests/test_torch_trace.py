@@ -204,11 +204,7 @@ def test_cl_tracer_quick_start():
 
 UNPORTED = {
     "polarization": dict(polarization=True),
-    "coherent": dict(coherent=True, image_bins=4),
-    "time_bins": dict(time_bins=4, opl_min=0.0, opl_max=10.0),
-    "flux_map": dict(flux_map=True),
     "track_paths": dict(track_paths=True),
-    "roulette": dict(roulette_threshold=0.01),
     "multichip": dict(mode="multichip"),
     "mesh2d": dict(mode="mesh2d"),
 }
@@ -246,8 +242,8 @@ def test_unported_scene_feature_raises(feature):
 
 def test_unported_entry_points_raise():
     tr = P.Tracer(device=CPU)
-    with pytest.raises(NotImplementedError, match="trace_batched"):
-        tr.trace_batched(None, 10, 5)
+    with pytest.raises(NotImplementedError, match="multichip"):
+        tr.trace_batched(None, 10, 5, mode="multichip")
     with pytest.raises(NotImplementedError, match="trace_spectral"):
         tr.trace_spectral(None, [0.5])
     with pytest.raises(NotImplementedError, match="spectral"):
