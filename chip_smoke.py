@@ -2,14 +2,22 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-It builds the port's CUDA kernel from csrc/, drives the tracer's main paths
+It builds the port's CUDA kernels from csrc/ (one nvcc a source, started
+together), drives the tracer's main paths
 (Tracer.trace in device and host mode at the sizes the repository's bench
-uses, and Tracer.trace_batched on BASELINE config 4 at its full 100M rays),
-holds the kernel against its plain torch version (also on rays built to sit
-on the kernel's reject margin, from edge_rays.py), and checks the physics
-(power ledger, detected power, repeatability, checkpoint resume). It prints
-the kernel's resources, its times beside their bound, and the profiler's
-split of three warm traces. Any failed check raises, so the script exits
+uses, Tracer.trace_batched on BASELINE config 4 at its full 100M rays, and
+the surface and volume physics at 524,288 rays: a polarized beam through a
+coated doublet onto a silver mirror and a grating; a diffuser, a rough
+mirror and a turbid fluorescent slab; an exact quadric lens beside its
+mesh; a gradient-index rod) and the epilogue-variant bench
+(variant_bench.micro_variants / epilogue_variants at the bench's intersect
+shape), holds every kernel against its plain torch version (the nearest-hit
+kernel also on rays built to sit on its reject margin, from edge_rays.py,
+and on the rays and cull masks that the physics traces and config 4 really
+launch it with), and checks the physics (power ledger, detected power,
+statistics of the random branches, repeatability, checkpoint resume). It
+prints the kernel's resources, its times beside their bound, and the
+profiler's split of four warm traces. Any failed check raises, so the script exits
 non-zero and prints no result. Without a CUDA device it exits non-zero at
 once. It imports nothing of JAX.
 
@@ -20,11 +28,13 @@ Output: one line per phase; then the kernel table as JSON, the card's
 
 import ctypes
 import json
+import re
 import subprocess
 import sys
 import tempfile
 import time
 import types
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -38,10 +48,14 @@ CFG4_RAYS = 100_000_000   # BASELINE.json configs[3]
 CFG4_CMP_RAYS = 16_000_000  # brute vs culled
 SEM_BATCH = 1 << 20       # phase 11: batched semantics, 4 batches
 SEM_CMP_BATCH = 1 << 16   # phase 11 (c): kernel vs plain version, 2 batches
+PHYS_CMP_RAYS = 1 << 12   # phase 13: kernel vs plain version, whole trace
 BATCH_FIELDS = ("hist", "per_detector", "image", "image_amp", "tri_flux",
                 "time_hist", "per_batch_detector")
 KERNEL_SRC = "lightpycl_tpu_torch/csrc/intersect.cu"
 TPU_KERNEL = "lightpycl_tpu/ops/intersect_pallas.py"
+VARIANT_SRC = "lightpycl_tpu_torch/csrc/intersect_variants.cu"
+TPU_MICRO = "benchmarks/micro_variants.py:173"
+TPU_EPILOGUE = "benchmarks/epilogue_variants.py:120"
 
 # The least time the card could take for a nearest hit: the flops of the
 # kernel's division-free reject test, which every (ray, triangle) pair
@@ -59,7 +73,12 @@ def check(cond, what):
         raise AssertionError(f"check failed: {what}")
 
 
+_T0 = time.perf_counter()
+
+
 def line(phase, **numbers):
+    """One phase line; `at_s` is the script's own clock when it prints."""
+    numbers["at_s"] = f"{time.perf_counter() - _T0:.1f}"
     print(f"[{phase}] " + " ".join(f"{k}={v}" for k, v in numbers.items()),
           flush=True)
 
@@ -106,6 +125,75 @@ def kept_pairs(mask, n_rays, n_tris, ray_block, tri_tile):
     tris = torch.clamp(n_tris - tri_tile * torch.arange(
         n_tt, device=mask.device), max=tri_tile).to(torch.float64)
     return int(rays @ bits @ tris)
+
+
+class LaunchTap:
+    """While active, keeps (cloned) what a trace gives the nearest hit at
+    the chosen launches of a run (0 = the first bounce): the scene, the
+    rays as launched, the cfg, the alive flags and the cull mask. Sits on
+    ops.intersect.intersect.observer."""
+
+    def __init__(self, PI, keep):
+        self.PI, self.keep, self.n, self.kept = PI, set(keep), 0, {}
+
+    def __call__(self, scene, o, d, cfg, alive, mask):
+        if self.n in self.keep:
+            self.kept[self.n] = (
+                scene, o.clone(), d.clone(), cfg,
+                torch.ones(o.shape[0], dtype=torch.bool, device=o.device)
+                if alive is None else alive.clone(),
+                None if mask is None else mask.clone())
+        self.n += 1
+
+    def __enter__(self):
+        self.PI.intersect.observer = self
+        return self
+
+    def __exit__(self, *exc):
+        self.PI.intersect.observer = None
+
+
+def hold_to_plain(PI, phase, bounce, launch, n_rays=CMP_RAYS):
+    """One launch of a main path, as a LaunchTap kept it, made again: the
+    kernel with the launch's own cull mask on `n_rays` of its rays (whole
+    ray blocks spread evenly over the launch) against the plain version
+    without a mask, (t, tri) of every live ray bitwise. The mask never
+    changes a live ray's result, so the plain version's culled path (a
+    Python loop over (ray block, tile) pairs, minutes on 2,056 tiles) is
+    not needed. Dead slots are left out: the mask is built from the live
+    rays only."""
+    scene, o, d, cfg, alive, mask = launch
+    RB, C, T = PI.RAY_BLOCK, o.shape[0], scene.wu.shape[0]
+    n_rb = C // RB
+    check(n_rb > 0, f"phase {phase}: the launch holds a whole ray block")
+    n_sel = min(n_rays // RB, n_rb)
+    sel = torch.arange(n_sel, device=o.device) * (n_rb // n_sel)
+
+    def blocks(x):
+        x = x[:n_rb * RB].reshape(n_rb, RB, *x.shape[1:])[sel]
+        return x.reshape(n_sel * RB, *x.shape[2:]).contiguous()
+
+    ob, db, live = blocks(o), blocks(d), blocks(alive)
+    mk = (None if mask is None else
+          mask.view(-(-C // RB), -1)[sel].reshape(-1).contiguous())
+    args = (scene.wu, scene.wv, scene.ww, cfg.eps, cfg.eps_bary,
+            cfg.max_ray_len)
+    t_k, i_k = PI.nearest_hit_cuda(ob, db, *args, mask=mk)
+    t_p, i_p = PI.nearest_hit_torch(ob, db, *args)
+    torch.cuda.synchronize()
+    tri_mismatch = int(((i_k != i_p) & live).sum())
+    t_bit_mismatch = int(((t_k.view(torch.int32) != t_p.view(torch.int32))
+                          & live).sum())
+    kept = (1.0 if mk is None else kept_pairs(
+        mk, n_sel * RB, T, RB, PI.TRI_TILE) / (n_sel * RB * T))
+    line(f"{phase} launch {bounce} vs plain", rays=n_sel * RB, of_rays=C,
+         triangles=T, culled=mk is not None, pairs_kept=f"{kept:.5f}",
+         live=int(live.sum()), hits=int(((i_k >= 0) & live).sum()),
+         tri_mismatch=tri_mismatch, t_bit_mismatch=t_bit_mismatch)
+    check(int(live.sum()) > 0, f"phase {phase} launch {bounce}: live rays")
+    check(tri_mismatch == 0 and t_bit_mismatch == 0,
+          f"phase {phase} launch {bounce}: the kernel on the main path's own "
+          "rays and mask bitwise equal to the plain version")
 
 
 def profile_trace(fn, top=3):
@@ -160,6 +248,411 @@ def bench_rays(n, seed=0):
     return torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda()
 
 
+TRACE_FIELDS = ("hist", "per_detector", "image", "measured_pos",
+                "measured_dir", "measured_power", "measured_stokes",
+                "measured_opl", "measured_wavelength", "measured_path")
+
+
+def same_trace(a, b):
+    """Two trace results equal bit for bit: ledger, bounce count, live
+    power, every detector map and every measured ray."""
+    return (a.ledger == b.ledger and a.iterations_run == b.iterations_run
+            and a.final_live_power == b.final_live_power
+            and all(np.array_equal(getattr(a, f), getattr(b, f))
+                    for f in TRACE_FIELDS))
+
+
+def physics_scene(P, n_segments, n_radial):
+    """A doublet of coated lenses (a two-layer and a one-layer stack), a
+    silver fold mirror at 45 degrees, a reflection grating (order -1, a
+    tenth of the reflected power left in order 0) and a measuring sphere."""
+    oe = P.optical_elements(n_segments, n_radial)
+    small = P.optical_elements(64, 16)
+    stack = [(1.38, 0.1064), (2.1, 0.0350)]
+    first = oe.biconvex_lens(1.0, 0.8, 0.2, ior=1.5, coating=stack)
+    second = oe.biconvex_lens(1.5, 0.8, 0.15, ior=1.7,
+                              coating=stack[:1]).translate((0, 0, 0.5))
+    fold = small.rectangle(1.2, 1.2, center=(0, 0, 2.0), material="mirror",
+                           reflectivity=0.98, metal_n=0.13, metal_k=3.9)
+    fold.rotate((0, 1, 0), 0.75 * np.pi, pivot=(0, 0, 2.0))
+    grating = small.rectangle(5.0, 5.0, center=(2.5, 0, 2.0),
+                              material="grating", axis=(1, 0, 0),
+                              grating_period=1.0, grating_order=-1,
+                              reflectivity=0.9, order0_fraction=0.1)
+    grating.rotate((0, 1, 0), 0.35 - 0.5 * np.pi, pivot=(2.5, 0, 2.0))
+    return [first, second, fold, grating,
+            small.sphere(radius=12.0, material="measure", name="dome")]
+
+
+def physics_source(P, n):
+    """Collimated, linearly polarized along the frame's s-direction."""
+    return P.CollimatedSource(center=(0, 0, -0.5), direction=(0, 0, 1),
+                              diameter=0.5, ray_count=n, power=1.0, seed=23,
+                              stokes=(1.0, 0.0, 0.0))
+
+
+def beam_up(P, n, **kw):
+    return P.CollimatedSource(center=(0, 0, 0), direction=(0, 0, 1),
+                              diameter=0.4, power=1.0, ray_count=n, seed=1,
+                              **kw)
+
+
+ALBEDO, ROUGH_SIGMA, ROUGH_G, ROUGH_TILT = 0.7, 0.03, 0.7, 0.3
+PUMP_UM, EMIT_UM, QUANTUM_YIELD = 0.45, 0.60, 0.8
+
+
+def diffuser_scene(P):
+    oe = P.optical_elements(64, 16)
+    return [oe.disc(radius=0.5, material="diffuse", reflectivity=ALBEDO,
+                    name="plate"),
+            oe.hemisphere(radius=6.0, name="dome"),
+            oe.disc(radius=6.0, center=(0, 0, -0.01), material="terminator")]
+
+
+def rough_mirror(P):
+    mirror = P.optical_elements(64, 16).rectangle(
+        6.0, 6.0, center=(0, 0, 0), material="mirror", reflectivity=0.9,
+        roughness=ROUGH_SIGMA, roughness_lobe=ROUGH_G)
+    return mirror.rotate((1.0, 0.0, 0.0), np.pi - ROUGH_TILT).translate(
+        (0, 0, 3.5))
+
+
+def turbid_phosphor(P, mu_s=1.0):
+    return P.optical_elements(64, 16).cube(
+        (6.0, 6.0, 1.0), center=(0, 0, 1.5), material="refractive", ior=1.2,
+        fluorescence=2.0, fluor_yield=QUANTUM_YIELD, fluor_emission=EMIT_UM,
+        fluor_edge=0.50, scattering=mu_s, scatter_g=0.8)
+
+
+def world(P, r=30.0):
+    return P.optical_elements(64, 16).sphere(radius=r, material="measure",
+                                             name="world")
+
+
+def random_scene(P):
+    """The pump beam crosses the turbid phosphor, meets the rough mirror,
+    and what comes back down lands on a diffusing floor."""
+    floor = P.optical_elements(64, 16).disc(
+        radius=8.0, center=(0, 0, -0.5), material="diffuse",
+        reflectivity=ALBEDO, name="floor")
+    return [turbid_phosphor(P), rough_mirror(P), floor, world(P)]
+
+
+def random_statistics(P, dev, n):
+    """The random branches held to what they must give, each alone in host
+    mode with n rays: (name, value, expected, bound) rows. The bounds are 5
+    sigma of n draws where the quantity is a mean of draws, else the
+    float32 sum's accuracy."""
+    rows = []
+    # Lambertian plate: the albedo split is deterministic; the scattered
+    # directions follow the cosine law, E[cos] = 2/3, Var = 1/18
+    res = P.Tracer(device=dev).trace(
+        P.CollimatedSource(center=(0, 0, 1.0), direction=(0, 0, -1),
+                           diameter=0.5, ray_count=n, seed=1),
+        diffuser_scene(P), trace_iterations=4, hist_mode="direction", seed=3)
+    rows += [("diffuse_measured", res.ledger["measured"], ALBEDO, 1e-4),
+             ("diffuse_absorbed", res.ledger["absorbed"], 1 - ALBEDO, 1e-4),
+             ("diffuse_mean_cos", float(res.measured_dir[:, 2].mean()),
+              2 / 3, 5 * np.sqrt(1 / 18 / n))]
+    # rough mirror: Rayleigh-Rice split (deterministic), and the lobe's
+    # mean cosine about the specular direction against the same folded
+    # Henyey-Greenstein lobe drawn independently in numpy
+    res = P.Tracer(device=dev).trace(
+        beam_up(P, n), [rough_mirror(P), world(P)], trace_iterations=3,
+        seed=3, capacity=2 * n)
+    tis = 1 - np.exp(-(4 * np.pi * ROUGH_SIGMA * np.cos(ROUGH_TILT)
+                       / 0.5876) ** 2)
+    nrm = np.array([0.0, -np.sin(ROUGH_TILT), -np.cos(ROUGH_TILT)])
+    spec = np.array([0, 0, 1.0]) - 2 * nrm[2] * nrm
+    c = res.measured_dir.astype(np.float64) @ spec
+    is_spec = c > 1 - 1e-6
+    rng = np.random.default_rng(0)
+    m = 1 << 20
+    u, phi = rng.uniform(size=m), rng.uniform(0, 2 * np.pi, m)
+    g = ROUGH_G
+    ct = (1 + g * g - ((1 - g * g) / (1 + g - 2 * g * u)) ** 2) / (2 * g)
+    st = np.sqrt(1 - ct ** 2)
+    e1 = np.cross(spec, [1.0, 0, 0])
+    e1 /= np.linalg.norm(e1)
+    e2 = np.cross(spec, e1)
+    d = ((st * np.cos(phi))[:, None] * e1 + (st * np.sin(phi))[:, None] * e2
+         + ct[:, None] * spec)
+    d = d - 2 * np.minimum(d @ nrm, 0.0)[:, None] * nrm
+    lobe, want = c[~is_spec], d @ spec
+    rows += [("rough_specular_power",
+              float(res.measured_power[is_spec].sum()), 0.9 * (1 - tis),
+              2e-4),
+             ("rough_reflected_power", float(res.measured_power.sum())
+              + res.final_live_power, 0.9, 1e-4),
+             ("rough_lobe_mean_cos", float(lobe.mean()), float(want.mean()),
+              5 * np.sqrt(lobe.var() / len(lobe) + want.var() / m))]
+    # turbid phosphor: every conversion keeps QY x (pump / emission
+    # wavelength) of its power and absorbs the rest, and nothing else
+    # absorbs, so converted / (converted + absorbed) is that factor up to
+    # the converted power still in flight or culled when the trace stops
+    res = P.Tracer(device=dev).trace(
+        beam_up(P, n, wavelength=PUMP_UM), [turbid_phosphor(P), world(P)],
+        trace_iterations=40, seed=5, capacity=2 * n, dissipation_target=1.0)
+    red = float(res.measured_power[res.measured_wavelength > 0.55].sum())
+    absorbed = res.ledger["absorbed"]
+    loose = res.ledger["culled"] + res.final_live_power
+    rows += [("fluorescence_power_factor", red / (red + absorbed),
+              QUANTUM_YIELD * PUMP_UM / EMIT_UM,
+              1e-4 + abs(loose) / (red + absorbed))]
+    if red + absorbed < 0.3:
+        raise AssertionError("check failed: the phosphor converted the pump")
+    # the bound must come from the statistic, not from an unfinished trace
+    if abs(loose) / (red + absorbed) > 1e-3:
+        raise AssertionError("check failed: the phosphor trace ran out: "
+                             f"{loose} of {red + absorbed} still in flight")
+    return rows
+
+
+def best_focus(res):
+    """(z, rms radius) of the least-rms plane of the measured rays that
+    carry more than half the strongest ray's power (the primary beam)."""
+    main = res.measured_power > 0.5 * res.measured_power.max()
+    p = res.measured_pos[main].astype(np.float64)
+    d = res.measured_dir[main].astype(np.float64)
+    v = d[:, :2] / d[:, 2:3]
+    s = -(p[:, :2] * v).sum() / (v * v).sum()
+    xy = p[:, :2] + s * v
+    return float(p[:, 2].mean() + s), float(np.sqrt((xy ** 2).sum(1).mean()))
+
+
+def lens_focus(P, dev, n, lens):
+    """Trace a paraxial beam through `lens` (a list of elements) onto an
+    exact plane past the focus; returns best_focus and the result."""
+    det = P.analytic_disc(3.0, vertex=(0, 0, 1.5), name="det")
+    src = P.CollimatedSource(center=(0, 0, -0.5), direction=(0, 0, 1),
+                             diameter=0.08, ray_count=n, seed=3)
+    res = P.Tracer(device=dev).trace(src, [*lens, det], trace_iterations=4,
+                                     capacity=2 * n, mode="host")
+    return best_focus(res), res
+
+
+GRIN_N0, GRIN_A = 1.6, 4.0
+
+
+def grin_trace(P, dev, n, substeps, iterations):
+    """A quarter-pitch, absorbing SELFOC rod under a collimated beam, host
+    mode: the reference's own sub-step check (tests/test_grin.py,
+    test_beer_lambert_uses_total_arc) at n rays."""
+    length = 0.25 * 2.0 * np.pi / np.sqrt(GRIN_A)
+    oe = P.optical_elements(64, 16)
+    rod = oe.cube((1.2, 1.2, length), center=(0, 0, 1.0 + length / 2),
+                  material="refractive", ior=GRIN_N0, grin_a=GRIN_A,
+                  axis=(0, 0, 1), grin_center=(0, 0, 1.0), absorption=0.8)
+    screen = oe.rectangle(width=10.0, depth=10.0,
+                          center=(0, 0, 1.0 + length + 5e-3),
+                          material="measure", name="exit")
+    src = P.CollimatedSource(center=(0, 0, 0), direction=(0, 0, 1),
+                             diameter=0.4, power=1.0, ray_count=n, seed=11)
+    return P.Tracer(P.TraceConfig(grin_substeps=substeps), device=dev).trace(
+        src, [rod, screen, oe.sphere(radius=20.0, material="measure",
+                                     name="world")],
+        trace_iterations=iterations, capacity=8 * n, mode="host")
+
+
+def exit_spot(res):
+    """(power, centroid (2,), rms radius), power-weighted, of the primary
+    beam on detector 0: the rays with more than half the strongest one's
+    power (ghosts arrive bounces later, and how many of them a run still
+    sees depends on when its early exit ends it)."""
+    sel = (res.measured_det == 0) & (
+        res.measured_power > 0.5 * res.measured_power.max())
+    w = res.measured_power[sel].astype(np.float64)
+    xy = res.measured_pos[sel][:, :2].astype(np.float64)
+    return (float(w.sum()), np.average(xy, axis=0, weights=w),
+            float(np.sqrt(np.average((xy ** 2).sum(1), weights=w))))
+
+
+def physics_phases(P, PI):
+    """Phases 13-17: the surface and volume physics at full width. Returns
+    the (brute, culled) kernel launches of its counted traces."""
+    # ---- 13. surface physics at full width: polarized, coated, metal,
+    #          grating ------------------------------------------------------
+    phys_els = physics_scene(P, 256, 256)
+    phys_kw = dict(trace_iterations=10, mode="device", polarization=True)
+    PI.nearest_hit_cuda.launches = 0
+    PI.nearest_hit_cuda.cull_launches = 0
+    tr_p = P.Tracer()
+    with LaunchTap(PI, (0, 3)) as tap_p:
+        res_p = tr_p.trace(physics_source(P, BENCH_RAYS), phys_els,
+                           capacity=2 * BENCH_RAYS, **phys_kw)
+    torch.cuda.synchronize()
+    launches_p = PI.nearest_hit_cuda.launches
+    cull_launches_p = PI.nearest_hit_cuda.cull_launches
+    cfg_p = tap_p.kept[0][3]  # the cfg as the trace resolved it
+    check(cfg_p.has_coatings and cfg_p.has_metals and cfg_p.has_gratings
+          and not cfg_p.has_birefringence, "phase 13 scene turns on "
+          "coatings, metals and gratings")
+    check(launches_p > 0, "phase 13: the kernel carried the physics trace")
+    check(res_p.power_conservation_error() <= 1e-5, "phase 13 ledger closes")
+    check(res_p.ledger["measured"] > 0.7 and np.isfinite(res_p.hist).all(),
+          "phase 13 measures the diffracted beam")
+    again_p = P.Tracer().trace(physics_source(P, BENCH_RAYS), phys_els,
+                               capacity=2 * BENCH_RAYS, **phys_kw)
+    check(same_trace(res_p, again_p), "phase 13 repeat run bit-identical")
+    # the culled launches of the trace itself, first bounce and a ghost one
+    check(sorted(tap_p.kept) == [0, 3], "phase 13: two launches kept")
+    for bounce, launch in sorted(tap_p.kept.items()):
+        check(launch[5] is not None, "phase 13 launches are culled")
+        hold_to_plain(PI, "13", bounce, launch)
+    del tap_p
+    # the whole trace against backend='torch' (cull off: the plain
+    # version's culled path is a Python loop over (ray block, triangle
+    # tile) pairs, minutes on this scene's 2,056 tiles)
+    small_p = {b: P.Tracer().trace(
+        physics_source(P, PHYS_CMP_RAYS), phys_els,
+        capacity=2 * PHYS_CMP_RAYS, trace_iterations=10, mode="host",
+        polarization=True, cull=False, backend=b) for b in ("cuda", "torch")}
+    check(same_trace(small_p["cuda"], small_p["torch"]),
+          "phase 13 kernel equal to backend='torch' in every field")
+    check(np.abs(small_p["cuda"].measured_stokes).max() > 0.1,
+          "phase 13 measured rays carry Stokes fractions")
+    line("13 physics trace", rays=BENCH_RAYS, capacity=2 * BENCH_RAYS,
+         triangles=tr_p.num_triangles, iterations=res_p.iterations_run,
+         measured=res_p.ledger["measured"], absorbed=res_p.ledger["absorbed"],
+         culled=res_p.ledger["culled"],
+         conservation_err=res_p.power_conservation_error(),
+         first_wall_s=res_p.wall_time, wall_s=again_p.wall_time,
+         rays_per_sec_full_trace=(
+             f"{BENCH_RAYS / max(again_p.wall_time, 1e-12):.6e}"),
+         slots_per_sec=f"{again_p.rays_per_second:.6e}",
+         launches=launches_p, cull_launches=cull_launches_p,
+         plain_rays=PHYS_CMP_RAYS,
+         plain_wall_s=small_p["torch"].wall_time,
+         kernel_wall_s=small_p["cuda"].wall_time)
+
+    # ---- 14. random physics: diffuser, rough mirror, turbid phosphor -----
+    rand_kw = dict(trace_iterations=8, capacity=2 * BENCH_RAYS,
+                   mode="device", seed=2)
+    PI.nearest_hit_cuda.launches = 0
+    PI.nearest_hit_cuda.cull_launches = 0
+    with LaunchTap(PI, (0, 2)) as tap_r:
+        res_r = P.Tracer().trace(beam_up(P, BENCH_RAYS, wavelength=PUMP_UM),
+                                 random_scene(P), **rand_kw)
+    torch.cuda.synchronize()
+    launches_r = PI.nearest_hit_cuda.launches
+    cull_launches_r = PI.nearest_hit_cuda.cull_launches
+    for bounce, launch in sorted(tap_r.kept.items()):
+        hold_to_plain(PI, "14", bounce, launch)
+    check(len(tap_r.kept) == 2, "phase 14: two launches kept")
+    del tap_r
+    check(launches_r > 0, "phase 14: the kernel carried the random trace")
+    check(res_r.power_conservation_error() <= 1e-5, "phase 14 ledger closes")
+    again_r = P.Tracer().trace(beam_up(P, BENCH_RAYS, wavelength=PUMP_UM),
+                               random_scene(P), **rand_kw)
+    check(same_trace(res_r, again_r), "phase 14 repeat run bit-identical")
+    other_r = P.Tracer().trace(beam_up(P, BENCH_RAYS, wavelength=PUMP_UM),
+                               random_scene(P), **dict(rand_kw, seed=3))
+    check(not np.array_equal(other_r.hist, res_r.hist),
+          "phase 14: another seed draws other numbers")
+    stats = random_statistics(P, "cuda", BENCH_RAYS)
+    for name, got, want, tol in stats:
+        check(abs(got - want) <= tol,
+              f"phase 14 {name}: {got} within {tol} of {want}")
+    line("14 random physics", rays=BENCH_RAYS,
+         iterations=res_r.iterations_run, measured=res_r.ledger["measured"],
+         absorbed=res_r.ledger["absorbed"], culled=res_r.ledger["culled"],
+         live=res_r.final_live_power,
+         conservation_err=res_r.power_conservation_error(),
+         wall_s=again_r.wall_time,
+         rays_per_sec_full_trace=(
+             f"{BENCH_RAYS / max(again_r.wall_time, 1e-12):.6e}"),
+         launches=launches_r, cull_launches=cull_launches_r,
+         repeat_equal=True)
+    for name, got, want, tol in stats:
+        line(f"14 statistic {name}", value=got, expected=want, bound=tol)
+
+    # ---- 15. the same plano-convex lens, exact and as a 256 x 256 mesh ---
+    PI.nearest_hit_cuda.launches = 0
+    PI.nearest_hit_cuda.cull_launches = 0
+    with LaunchTap(PI, (0,)) as tap_a:
+        (z_exact, rms_exact), res_a = lens_focus(
+            P, "cuda", BENCH_RAYS,
+            P.analytic_plano_convex_lens(0.5, 0.4, 0.05, ior=1.5))
+    launches_a = PI.nearest_hit_cuda.launches
+    cull_launches_a = PI.nearest_hit_cuda.cull_launches
+    with LaunchTap(PI, (1,)) as tap_m:  # inside the meshed lens
+        (z_mesh, rms_mesh), res_m = lens_focus(
+            P, "cuda", BENCH_RAYS,
+            [P.optical_elements(256, 256).plano_convex_lens(
+                r=0.5, aperture=0.4, thickness=0.05, ior=1.5)])
+    torch.cuda.synchronize()
+    hold_to_plain(PI, "15 analytic", 0, tap_a.kept[0])
+    hold_to_plain(PI, "15 mesh", 1, tap_m.kept[1])
+    del tap_a, tap_m
+    for r in (res_a, res_m):
+        check(r.power_conservation_error() <= 1e-5,
+              "phase 15 ledger closes")
+    check(launches_a > 0, "phase 15: the kernel ran beside the quadrics")
+    check(rms_exact <= rms_mesh,
+          "phase 15: the analytic spot is no larger than the mesh's")
+    # the mesh's rings are 0.2 / 256 wide on a radius of 0.5: facet slopes
+    # are off by up to 8e-4, and so, at a focal length of 1, is its focus
+    check(abs(z_exact - z_mesh) <= 2e-3,
+          "phase 15: both focus at the same place within the facet error")
+    line("15 analytic vs mesh", rays=BENCH_RAYS, focus_z_analytic=z_exact,
+         focus_z_mesh=z_mesh, rms_spot_analytic=rms_exact,
+         rms_spot_mesh=rms_mesh, measured_analytic=res_a.ledger["measured"],
+         measured_mesh=res_m.ledger["measured"], wall_analytic_s=res_a.wall_time,
+         wall_mesh_s=res_m.wall_time, launches=launches_a,
+         cull_launches=cull_launches_a)
+
+    # ---- 16. GRIN rod: 8 sub-steps a bounce against one ------------------
+    PI.nearest_hit_cuda.launches = 0
+    PI.nearest_hit_cuda.cull_launches = 0
+    with LaunchTap(PI, (1,)) as tap_g:  # inside the rod
+        g1 = grin_trace(P, "cuda", BENCH_RAYS, 1, 60)
+    g8 = grin_trace(P, "cuda", BENCH_RAYS, 8, 12)
+    torch.cuda.synchronize()
+    launches_g = PI.nearest_hit_cuda.launches
+    cull_launches_g = PI.nearest_hit_cuda.cull_launches
+    hold_to_plain(PI, "16", 1, tap_g.kept[1])
+    del tap_g
+    (_, c1, r1), (_, c8, r8) = exit_spot(g1), exit_spot(g8)
+    for r in (g1, g8):
+        check(r.power_conservation_error() <= 1e-4, "phase 16 ledger closes")
+    check(g1.ledger["absorbed"] > 0.3, "phase 16: the rod absorbs")
+    # the reference's own bounds (tests/test_grin.py): power and absorbed
+    # 2e-4 at 8 sub-steps, exit centroid and rms radius 1e-5
+    check(abs(g8.ledger["absorbed"] - g1.ledger["absorbed"]) < 2e-4
+          and abs(g8.detector_power("exit") - g1.detector_power("exit"))
+          < 2e-4, "phase 16: absorbed and exit power agree to 2e-4")
+    check(np.abs(c8 - c1).max() < 1e-5 and abs(r8 - r1) < 1e-5,
+          "phase 16: exit centroid and rms radius agree to 1e-5")
+    check(g8.iterations_run < g1.iterations_run,
+          "phase 16: sub-steps need fewer bounces")
+    line("16 grin rod", rays=BENCH_RAYS, capacity=8 * BENCH_RAYS,
+         iterations_1=g1.iterations_run, iterations_8=g8.iterations_run,
+         exit_power_1=g1.detector_power("exit"),
+         exit_power_8=g8.detector_power("exit"),
+         absorbed_1=g1.ledger["absorbed"], absorbed_8=g8.ledger["absorbed"],
+         centroid_diff=float(np.abs(c8 - c1).max()), rms_1=r1, rms_8=r8,
+         wall_1_s=g1.wall_time, wall_8_s=g8.wall_time, launches=launches_g,
+         cull_launches=cull_launches_g)
+
+    # ---- 17. where the physics trace's device time goes ------------------
+    split_p = profile_trace(lambda: P.Tracer().trace(
+        physics_source(P, BENCH_RAYS), phys_els, capacity=2 * BENCH_RAYS,
+        **phys_kw), top=8)
+    check(split_p["kernel_ms"] > 0, "physics trace: profiler saw the kernel")
+    line("17 profile physics", kernel_share_of_busy=(
+        f"{split_p['kernel_ms'] / split_p['busy_ms']:.4f}"), **split_p)
+
+    new_brute = sum(a - b for a, b in (
+        (launches_p, cull_launches_p), (launches_r, cull_launches_r),
+        (launches_a, cull_launches_a), (launches_g, cull_launches_g)))
+    new_cull = (cull_launches_p + cull_launches_r + cull_launches_a
+                + cull_launches_g)
+    check(new_brute + new_cull > 0 and cull_launches_p > 0,
+          "the physics phases went through the kernel, culled on the "
+          "collimated beam")
+    return new_brute, new_cull
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -169,7 +662,9 @@ def main():
     import lightpycl_tpu_torch as P
     from edge_rays import edge_rays
     from lightpycl_tpu_torch.ops import _build
+    from lightpycl_tpu_torch import variant_bench as VB
     from lightpycl_tpu_torch.ops import intersect as PI
+    from lightpycl_tpu_torch.ops import intersect_variants as IV
     from lightpycl_tpu_torch.tracer import step as S
 
     kind = torch.cuda.get_device_name(0)
@@ -181,12 +676,17 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # ---- 2. build the kernel from the checkout's sources ------------------
+    # ---- 2. build the kernels from the checkout's sources, together ------
     t0 = time.perf_counter()
-    lib = PI.load_kernel()
+    with ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(PI.load_kernel), pool.submit(IV.load_kernel)]
+        lib = builds[0].result()
+        builds[1].result()
     build_s = time.perf_counter() - t0
     line("2 build", seconds=f"{build_s:.3f}",
-         library=_build.library_path("intersect.cu", dict(PI._DEFINES)).name)
+         library=_build.library_path("intersect.cu", dict(PI._DEFINES)).name,
+         variants_library=_build.library_path("intersect_variants.cu",
+                                              {}).name)
     attrs = [ctypes.c_int() for _ in range(5)]
     check(lib.lpcl_nearest_hit_resources(*map(ctypes.byref, attrs)) == 0,
           "kernel resources readable")
@@ -197,6 +697,21 @@ def main():
         if ptx.strip():
             print(f"[2 ptxas] {ptx.strip()}", flush=True)
     check(local == 0, "no local memory (no register spills)")
+    # the variants' registers, each under its template arguments as the
+    # entry's mangled name carries them (denom, notmax, min2, n_sub, reg)
+    by_args = {(IV._DENOMS[v.denom], int(v.notmax), int(v.min2), v.n_sub,
+                int(v.reg)): name for name, v in IV.VARIANTS.items()}
+    entry, n_used = None, 0
+    for ptx in _build.ptxas_report("intersect_variants.cu"):
+        m = re.search(r"variant_kernelILi(\d+)ELb(\d)ELb(\d)ELi(\d+)"
+                      r"ELb(\d)EE", ptx)
+        if m:
+            entry = by_args[tuple(map(int, m.groups()))]
+        elif "Used" in ptx and entry is not None:
+            print(f"[2 ptxas variants] {entry}: "
+                  f"{ptx.split('Used', 1)[1].strip()}", flush=True)
+            n_used += 1
+    check(n_used == len(IV.VARIANTS), "one compiled kernel a variant")
 
     # ---- 3. B1 kernel vs plain at the bench's intersect shape -------------
     big = P.optical_elements(256, 256).sphere(5.0, material="terminator",
@@ -485,6 +1000,30 @@ def main():
          launches=launches4, cull_launches=cull_launches4,
          peak_mem_gib=f"{peak4:.3f}", one_batch_peak_mem_gib=f"{warm_peak:.3f}",
          warmup_batch_s=f"{warm_s:.3f}")
+    # the culled kernel's work on config 4's two bounces: the rays and masks
+    # that one batch of trace_batched itself gives the kernel
+    with LaunchTap(PI, (0, 1)) as tap4:
+        cfg4(CFG4_BATCH, None)
+    check(sorted(tap4.kept) == [0, 1], "config 4: a batch takes two bounces")
+    cfg4_bounces = []
+    for bounce, launch in sorted(tap4.kept.items()):
+        scene4, so, sd, cfg4_cfg, alive4, mask4 = launch
+        check(mask4 is not None, "config 4: the batch ran culled")
+        T4 = scene4.wu.shape[0]
+        args4 = (scene4.wu, scene4.wv, scene4.ww, cfg4_cfg.eps,
+                 cfg4_cfg.eps_bary, cfg4_cfg.max_ray_len)
+        pairs4 = kept_pairs(mask4, CFG4_BATCH, T4, PI.RAY_BLOCK, PI.TRI_TILE)
+        ms4 = cuda_ms(lambda: PI.nearest_hit_cuda(so, sd, *args4, mask=mask4))
+        bound4, by4 = bound(pairs4, CFG4_BATCH, T4, mask4.numel())
+        cfg4_bounces.append({"pairs": pairs4, "ms": ms4, "bound_ms": bound4,
+                             "bound_by": by4})
+        line(f"10 config4 bounce {bounce}", rays=CFG4_BATCH, triangles=T4,
+             live_rays=int(alive4.sum()), kept_pairs=pairs4,
+             pairs_kept=f"{pairs4 / (CFG4_BATCH * T4):.5f}", kernel_ms=ms4,
+             bound_ms=bound4, bound_by=by4,
+             share_of_bound=f"{bound4 / ms4:.4f}")
+        hold_to_plain(PI, "10 config4", bounce, launch)
+    del tap4, launch, scene4, so, sd, alive4, mask4
     res16 = {}
     for cull in (False, None):
         PI.nearest_hit_cuda.launches = 0
@@ -563,11 +1102,90 @@ def main():
     check(split4["kernel_ms"] > 0, "config 4: profiler saw the kernel")
     line("12 profile config4", **split4)
 
+    new_brute, new_cull = physics_phases(P, PI)
+
+    # ---- 18. the epilogue variants (V1, V2): the two bench entry points at
+    #          the bench's intersect shape, then each kernel against its
+    #          plain version -----------------------------------------------
+    v_inputs = VB.bench_inputs(BENCH_RAYS)
+    vo, vd, vwu, vwv, vww, v_tris = v_inputs
+    check(v_tris == n_tris and vo.shape[0] == BENCH_RAYS,
+          "phase 18 runs at phase 3's shape")
+    IV.nearest_hit_variant_cuda.launches.clear()
+    v_rows = VB.micro_variants(v_inputs) + VB.epilogue_variants(v_inputs)
+    torch.cuda.synchronize()
+    v_launches = dict(IV.nearest_hit_variant_cuda.launches)
+    v_cfg = P.TraceConfig()
+    vargs = (vwu, vwv, vww, v_cfg.eps, v_cfg.eps_bary, v_cfg.max_ray_len)
+    v_bound_ms, v_bound_by = bound(BENCH_RAYS * vwu.shape[0], BENCH_RAYS,
+                                   vwu.shape[0])
+    t_b1, i_b1 = PI.nearest_hit_cuda(vo, vd, *vargs)
+    v_entries = []
+    for r in v_rows:
+        name = r["variant"]
+        micro = name in IV.MICRO_VARIANTS
+        rb = 256 if micro else 64
+        v_base = v_rows[0 if micro else len(IV.MICRO_VARIANTS)]
+        check(v_launches.get(name, 0) > 0,
+              f"variant {name}: the bench launched its kernel")
+        check(r["ok"], f"variant {name}: same result as its script's base "
+              f"({r['tri_mismatch']} triangles differ, t by "
+              f"{r['max_rel_dt']} relative)")
+        check(r["tri_mismatch"] <= (BENCH_RAYS >> 16 if name == "recip"
+                                    else 0),
+              f"variant {name}: triangles as the base's (recip: but for a "
+              "few ties on shared edges)")
+        t_k, i_k = IV.nearest_hit_variant_cuda(
+            vo[:CMP_RAYS], vd[:CMP_RAYS], *vargs, variant=name, ray_block=rb)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        t_p, i_p = IV.nearest_hit_variant_torch(
+            vo[:CMP_RAYS], vd[:CMP_RAYS], *vargs, variant=name)
+        ev[1].record()
+        torch.cuda.synchronize()
+        v_plain_ms = ev[0].elapsed_time(ev[1])
+        n_idx = int((i_k != i_p).sum())
+        n_bits = int((t_k.view(torch.int32) != t_p.view(torch.int32)).sum())
+        fin = torch.isfinite(t_p)
+        v_err = float((t_k[fin] - t_p[fin]).abs().max())
+        line(f"18 variant {name}", script=("micro_variants" if micro
+                                            else "epilogue_variants"),
+             ray_block=rb, rays=BENCH_RAYS, triangles=v_tris,
+             kernel_ms=r["ms"], tests_per_s=f"{r['tests_per_s']:.4e}",
+             vs_base=f"{r['tests_per_s'] / v_base['tests_per_s']:.4f}",
+             identical_to_base=r["identical"],
+             tri_mismatch_to_base=r["tri_mismatch"],
+             max_rel_dt=r["max_rel_dt"],
+             hits=r["hits"], launches=v_launches[name],
+             bound_ms=v_bound_ms, share_of_bound=f"{v_bound_ms / r['ms']:.4f}",
+             plain_ms=v_plain_ms, plain_rays=CMP_RAYS, tri_mismatch=n_idx,
+             t_bit_mismatch=n_bits, max_abs_err=v_err)
+        check(n_idx == 0 and n_bits == 0,
+              f"variant {name}: kernel bitwise equal to its plain version")
+        if name != "recip":
+            t_v, i_v = IV.nearest_hit_variant_cuda(vo, vd, *vargs,
+                                                   variant=name, ray_block=rb)
+            check(torch.equal(i_v, i_b1) and torch.equal(t_v, t_b1),
+                  f"variant {name}: same bits as the B1 kernel")
+        v_entries.append(
+            {"name": f"nearest_hit variant {name} "
+                     f"({'V1' if micro else 'V2'})", "route": "cuda",
+             "source": VARIANT_SRC,
+             "replaces": TPU_MICRO if micro else TPU_EPILOGUE,
+             "launches": v_launches[name], "max_abs_err": v_err,
+             "ms": r["ms"], "plain_ms": v_plain_ms, "bound_ms": v_bound_ms,
+             "bound_by": v_bound_by, "share_of_bound": v_bound_ms / r["ms"],
+             "library_ms": None, "ray_block": rb, "rays": BENCH_RAYS,
+             "plain_rays": CMP_RAYS, "triangles": v_tris})
+    del t_b1, i_b1, vo, vd, v_inputs
+
     table = {"kernels": [
         {"name": "nearest_hit (B1, brute)", "route": "cuda",
          "source": KERNEL_SRC, "replaces": f"{TPU_KERNEL}:154",
-         "launches": launches - cull_launches + launches4 - cull_launches4,
+         "launches": (launches - cull_launches + launches4 - cull_launches4
+                      + new_brute),
          "launches_trace_batched": launches4 - cull_launches4,
+         "launches_physics": new_brute,
          "max_abs_err": b1_err,
          "ms": b1_ms, "plain_ms": b1_plain_ms, "bound_ms": b1_bound_ms,
          "bound_by": b1_bound_by, "share_of_bound": b1_bound_ms / b1_ms,
@@ -575,14 +1193,16 @@ def main():
          "rays": BENCH_RAYS, "plain_rays": CMP_RAYS, "triangles": n_tris},
         {"name": "nearest_hit (B2, cull)", "route": "cuda",
          "source": KERNEL_SRC, "replaces": f"{TPU_KERNEL}:185",
-         "launches": cull_launches + cull_launches4,
-         "launches_trace_batched": cull_launches4, "max_abs_err": b2_err,
+         "launches": cull_launches + cull_launches4 + new_cull,
+         "launches_trace_batched": cull_launches4,
+         "launches_physics": new_cull, "max_abs_err": b2_err,
          "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound_ms,
          "bound_by": b2_bound_by, "share_of_bound": b2_bound_ms / b2_ms,
          "library_ms": None, "pairs": b2_pairs,
+         "config4_bounces": cfg4_bounces,
          "rays": BENCH_RAYS, "plain_rays": nb,
          "triangles": scene_b.num_triangles_padded},
-    ]}
+    ] + v_entries}
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {

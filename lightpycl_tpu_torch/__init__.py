@@ -9,11 +9,14 @@ torch. Importing this package needs neither jax nor lightpycl_tpu, and
 builds nothing.
 
 Ported so far: the single-device trace (`Tracer.trace(mode="host" |
-"device")` and the `CL_Tracer.iterative_tracer` facade) with the core
-material model, the optional detector maps and roulette, and the batched
-mega-ray tracer `Tracer.trace_batched` with the sources' device samplers,
-checkpoint / resume and ray-file replay (`lightpycl_tpu_torch.io`);
-unported features raise NotImplementedError (ROADMAP.md).
+"device")` and the `CL_Tracer.iterative_tracer` facade) with the whole
+material model (polarization, coatings, metals, gratings, crystals,
+diffuse and rough surfaces, turbid and fluorescent media, GRIN, path
+tracking), the exact quadric surfaces, the optional detector maps and
+roulette, and the batched mega-ray tracer `Tracer.trace_batched` with the
+sources' device samplers, checkpoint / resume and ray-file replay
+(`lightpycl_tpu_torch.io`); unported entry points (spectral, diff,
+multi-device) raise NotImplementedError (ROADMAP.md).
 """
 
 from lightpycl_tpu_torch.materials import Material, glass
@@ -21,6 +24,10 @@ from lightpycl_tpu_torch.geometry.mesh import (GeoObject, instance_grid,
                                                instances, merge)
 from lightpycl_tpu_torch.geometry.primitives import (OpticalElements,
                                                      optical_elements)
+from lightpycl_tpu_torch.geometry.analytic import (
+    AnalyticSurface, analytic_annulus, analytic_biconvex_lens, analytic_disc,
+    analytic_lens, analytic_mirror, analytic_plano_convex_lens,
+    analytic_sphere, conic_surface, cylinder_surface)
 from lightpycl_tpu_torch.sources import (AreaSource, CollimatedSource,
                                          LightSource, light_source)
 from lightpycl_tpu_torch.tracer.config import TraceConfig
@@ -40,6 +47,16 @@ __all__ = [
     "instance_grid",
     "OpticalElements",
     "optical_elements",
+    "AnalyticSurface",
+    "conic_surface",
+    "cylinder_surface",
+    "analytic_lens",
+    "analytic_plano_convex_lens",
+    "analytic_biconvex_lens",
+    "analytic_mirror",
+    "analytic_disc",
+    "analytic_annulus",
+    "analytic_sphere",
     "AreaSource",
     "CollimatedSource",
     "LightSource",

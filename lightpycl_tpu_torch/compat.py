@@ -2,9 +2,12 @@
 
 Port counterpart of lightpycl_tpu/compat.py: `CL_Tracer` with
 `iterative_tracer`, `get_measured_rays`, `get_detector_histogram`,
-`get_power_ledger` and `get_trace_performance`. The reference's plotting,
-directivity and DXF export need its analysis/io layers and are not ported
-yet (ROADMAP.md).
+`get_power_ledger` and `get_trace_performance`. No getter of the reference
+is fed only by the surface and volume physics (Stokes fractions and path
+signatures come back in TraceResult.measured_stokes / measured_path). Its
+plotting, directivity, beam statistics and DXF export need the analysis / io
+layers and are not ported yet (ROADMAP A 8), nor is the spectral upgrade of
+iterative_tracer (ROADMAP A 5).
 
     from lightpycl_tpu_torch.compat import (CL_Tracer, optical_elements,
                                             light_source)
@@ -70,7 +73,8 @@ class CL_Tracer(Tracer):
         if wavelengths is not None or spectral_weights is not None:
             raise NotImplementedError(
                 "spectral tracing (iterative_tracer(wavelengths=...)) is not "
-                "ported to lightpycl_tpu_torch yet")
+                "ported to lightpycl_tpu_torch yet (ROADMAP A 5: "
+                "spectral.py)")
         if power_dissipated is not None:
             kw.setdefault("dissipation_target", float(power_dissipated))
         mode = kw.pop("mode", "host")

@@ -335,7 +335,17 @@ def intersect(scene, o, d, cfg, alive=None):
     unreachable (ray block, triangle tile) pairs (identical results)."""
     mask = (block_tile_mask(scene, o, d, cfg.max_ray_len, alive=alive)
             if cfg.cull else None)
-    return nearest_hit(o.contiguous(), d.contiguous(), scene.wu, scene.wv,
-                       scene.ww, cfg.eps, cfg.eps_bary, cfg.max_ray_len,
-                       mask=mask, backend=cfg.backend)
+    o, d = o.contiguous(), d.contiguous()
+    if intersect.observer is not None:
+        intersect.observer(scene, o, d, cfg, alive, mask)
+    return nearest_hit(o, d, scene.wu, scene.wv, scene.ww, cfg.eps,
+                       cfg.eps_bary, cfg.max_ray_len, mask=mask,
+                       backend=cfg.backend)
+
+
+# A measuring script's tap on what a trace really gives the kernel: when
+# set, called before every nearest hit of a trace with (scene, o, d, cfg,
+# alive, mask), the rays as launched and the cull mask (None when cfg.cull
+# is off). None in normal use.
+intersect.observer = None
 

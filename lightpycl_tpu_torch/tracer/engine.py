@@ -19,8 +19,12 @@ and `get_surface_flux`.
     optional checkpoint after every batch.
 
 The tracer runs on an explicit `device` (default CUDA; the CPU only when
-asked for). Features outside the ported core raise NotImplementedError
-naming the feature. The reference's own quirks in `_resolve_ray_len`
+asked for). Every scene the reference's `trace` accepts in these modes is
+accepted here (polarized, coated, metallic, diffracting, birefringent,
+diffuse, rough, turbid, fluorescent, gradient-index and analytic elements,
+path tracking in host mode); the entry points still unported (spectral,
+multi-device) raise NotImplementedError naming their ROADMAP item. The
+reference's own quirks in `_resolve_ray_len`
 (an explicit max_ray_len equal to the default counts as unset; the reach
 includes dead padding slots' origins) are reproduced, not fixed.
 """
@@ -29,6 +33,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import math
 import os
 import time
 from typing import Optional, Sequence
@@ -68,6 +73,15 @@ def _check_coherent(cfg: TraceConfig) -> None:
             "coherent=True accumulates the complex field on the image "
             "plane: set image_bins (and image_center/image_normal/"
             "image_halfwidth) too")
+
+
+def _check_fluorescence(cfg: TraceConfig) -> None:
+    if cfg.has_fluorescence and cfg.coherent:
+        raise ValueError(
+            "coherent field accumulation is undefined for "
+            "fluorescence-converted light (spontaneous emission "
+            "is incoherent with the source): disable coherent=True "
+            "or remove the fluorescent element")
 
 
 def _opl_edges(cfg: TraceConfig):
@@ -261,7 +275,9 @@ class Tracer:
         if mode not in ("host", "device"):
             raise ValueError(f"unknown mode {mode!r}")
         if profile_logdir is not None:
-            raise NotImplementedError("profile_logdir is not ported")
+            raise NotImplementedError(
+                "profile_logdir is not ported to lightpycl_tpu_torch yet "
+                "(ROADMAP A 8: utils/profiling)")
         cfg = self.cfg
         if trace_iterations is not None:
             cfg_overrides["trace_iterations"] = int(trace_iterations)
@@ -272,11 +288,18 @@ class Tracer:
         if self.scene is None:
             raise ValueError("no scene: pass `elements` or call set_elements()")
         _check_coherent(cfg)
+        if cfg.track_paths:
+            if mode != "host":
+                raise ValueError(
+                    "track_paths=True needs mode='host': the measured-ray "
+                    "harvest is what carries the path signatures out")
+            if cfg.path_base == 0:
+                cfg = cfg.replace(path_base=2 * len(self.elements) + 1)
         cfg = self._tune_splitting(cfg)
         cfg = self._check_polarization(cfg)
         self._check_flux_map(cfg, mode)
         self._check_time_bins(cfg)
-        step_mod.require_core(cfg)
+        _check_fluorescence(cfg)
         if rays is None:
             origins, dirs, powers = source.sample()
             wls = (source.sample_wavelengths()
@@ -309,7 +332,8 @@ class Tracer:
 
     def trace_spectral(self, *args, **kwargs):
         raise NotImplementedError(
-            "trace_spectral is not ported to lightpycl_tpu_torch yet")
+            "trace_spectral is not ported to lightpycl_tpu_torch yet "
+            "(ROADMAP A 5: spectral.py)")
 
     def _detector_zeros(self, cfg: TraceConfig) -> DetectorState:
         return DetectorState.zeros(
@@ -352,7 +376,6 @@ class Tracer:
         cfg = self._check_polarization(cfg)
         self._check_flux_map(cfg, mode)
         self._check_time_bins(cfg)
-        step_mod.require_core(cfg)
         dev = self.device
         if cfg.cull is None:
             # auto-cull from a small device sample of the source's bundle
@@ -498,8 +521,10 @@ class Tracer:
                 "per-facet incident flux would overcount")
 
     def _check_polarization(self, cfg: TraceConfig) -> TraceConfig:
-        """The reference's has-flag resolution from the scene materials
-        (the flags that resolve True then raise in step.require_core)."""
+        """The reference's has-flag resolution from the scene materials:
+        each branch of `shade` runs exactly when the scene has an element
+        that needs it, and grin_step left at 0 becomes 1/50 of the steepest
+        profile's pitch (~25 steps per half pitch)."""
         needs = [e for e in self.elements
                  if e.material in (Material.POLARIZER, Material.WAVEPLATE,
                                    Material.BIREFRINGENT)]
@@ -523,10 +548,14 @@ class Tracer:
                                  for e in els),
             has_roughness=any(getattr(e, "roughness", 0.0) > 0.0
                               for e in els),
-            has_grin=any(abs(getattr(e, "grin_a", 0.0)) > 0.0 for e in els),
             has_analytic=any(getattr(e, "quad_abgd", None) is not None
                              for e in els),
         )
+        grin_as = [abs(getattr(e, "grin_a", 0.0)) for e in els]
+        flags["has_grin"] = any(a > 0.0 for a in grin_as)
+        if flags["has_grin"] and cfg.grin_step <= 0.0:
+            pitch = 2.0 * math.pi / math.sqrt(max(grin_as))
+            flags["grin_step"] = pitch / 50.0
         return cfg.replace(**flags)
 
     def _resolve_ray_len(self, cfg: TraceConfig,

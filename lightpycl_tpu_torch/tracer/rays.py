@@ -54,15 +54,17 @@ class RayBatch(NamedTuple):
     alive: torch.Tensor       # (C,)  bool
     wavelength: torch.Tensor  # (C,)  f32 vacuum wavelength [um]
     absorb: torch.Tensor      # (C,)  f32 current-medium absorption [1/len]
-    s1: torch.Tensor          # (C,)  f32 Stokes fractions (inert: the
-    s2: torch.Tensor          # (C,)  port traces the unpolarized model)
-    s3: torch.Tensor          # (C,)
+    s1: torch.Tensor          # (C,)  f32 Stokes fractions S1/S0, S2/S0,
+    s2: torch.Tensor          # (C,)  S3/S0 in the `basis` frame (carried
+    s3: torch.Tensor          # (C,)  always; TraceConfig.polarization acts)
     basis: torch.Tensor       # (C,3) f32 s-direction reference
     opl: torch.Tensor         # (C,)  f32 accumulated optical path length
-    path: torch.Tensor        # (C,)  f32 path signature (0: not tracked)
+    path: torch.Tensor        # (C,)  f32 path signature (track_paths)
     scat: torch.Tensor        # (C,)  f32 medium scattering coefficient
     scat_g: torch.Tensor      # (C,)  f32 medium HG anisotropy
-    medium: torch.Tensor      # (C,)  f32 current-medium element id (-1)
+    medium: torch.Tensor      # (C,)  f32 current-medium element id (-1 =
+    #                           ambient; indexes the fluorescence and GRIN
+    #                           tables)
 
     @property
     def capacity(self) -> int:

@@ -216,3 +216,111 @@ def test_ray_batch_padding_and_reference_copy():
                               getattr(grown, f).numpy()), f
     with pytest.raises(ValueError):
         port.padded_to(2)
+
+
+ANALYTIC = {
+    "conic_surface": lambda m: m.conic_surface(
+        0.5, -0.3, r_max=0.8, r_min=0.1, vertex=(0.1, 0, 1), axis=(0, 1, 1),
+        material="mirror"),
+    "cylinder_surface": lambda m: m.cylinder_surface(
+        0.4, -0.2, 0.5, vertex=(0, 0.2, 0), axis=(1, 0, 0)),
+    "analytic_mirror": lambda m: m.analytic_mirror(
+        1.0, 2.0, k=-1.0, reflectivity=0.9, center=(0, 0.1, 0.2)),
+    "analytic_disc": lambda m: m.analytic_disc(3.0, vertex=(0, 0, 1.4),
+                                               name="det"),
+    "analytic_annulus": lambda m: m.analytic_annulus(0.3, 1.0,
+                                                     vertex=(0, 0, 0.5)),
+    "transformed": lambda m: m.analytic_mirror(2.0, 1.0).translate(
+        (0.1, 0.2, 0.3)).rotate((1, 0, 0), 0.4).scale(1.5),
+}
+ANALYTIC_LENSES = {
+    "analytic_lens": lambda m: m.analytic_lens(1.0, -1.5, 0.8, 0.2, ior=1.6,
+                                               k1=-0.5, center=(0, 0, 1)),
+    "plano_convex": lambda m: m.analytic_plano_convex_lens(0.5, 0.4, 0.05),
+    "biconvex": lambda m: m.analytic_biconvex_lens(1.0, 0.8, 0.2, ior=1.5),
+    "sphere": lambda m: m.analytic_sphere(5.0, center=(0, 0, 1)),
+}
+QUAD_FIELDS = ("quad_abgd", "quad_rlim", "quad_zlim", "quad_vertex",
+               "quad_frame")
+
+
+def assert_same_surface(a, b):
+    assert type(a).__name__ == type(b).__name__ == "AnalyticSurface"
+    for f in QUAD_FIELDS:
+        assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    assert np.array_equal(a.vertices, b.vertices)
+    assert np.array_equal(a.triangles, b.triangles)
+    assert int(a.material) == int(b.material)
+    assert (a.ior, a.reflectivity, a.name) == (b.ior, b.reflectivity, b.name)
+
+
+@pytest.mark.parametrize("name", sorted(ANALYTIC))
+def test_analytic_surfaces_identical(name):
+    assert_same_surface(ANALYTIC[name](L), ANALYTIC[name](P))
+
+
+@pytest.mark.parametrize("name", sorted(ANALYTIC_LENSES))
+def test_analytic_lenses_identical(name):
+    a, b = ANALYTIC_LENSES[name](L), ANALYTIC_LENSES[name](P)
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert_same_surface(x, y)
+
+
+def test_analytic_to_mesh_identical():
+    a = L.analytic_mirror(2.0, 1.0, k=-0.5).to_mesh(16, 6)
+    b = P.analytic_mirror(2.0, 1.0, k=-0.5).to_mesh(16, 6)
+    assert np.array_equal(a.vertices, b.vertices)
+    assert np.array_equal(a.triangles, b.triangles)
+
+
+@pytest.mark.parametrize("spatial_sort", [False, True])
+def test_build_scene_quad_tables_bit_exact(spatial_sort):
+    """A mesh lens between analytic surfaces: the quad_* tables, the
+    zeroed placeholder rows and quad_tri under both triangle orders."""
+    def els(m):
+        oe = m.optical_elements(16, 6)
+        return [*m.analytic_biconvex_lens(1.0, 0.8, 0.2, ior=1.5),
+                oe.biconvex_lens(1.5, 0.8, 0.15, ior=1.7).translate(
+                    (0, 0, 0.5)),
+                m.analytic_mirror(2.0, 1.0, center=(0, 0, 3.0)),
+                *m.analytic_sphere(6.0, name="world")]
+
+    rs, rn = L.build_scene(els(L), spatial_sort=spatial_sort)
+    ps, pn = P.build_scene(els(P), spatial_sort=spatial_sort, device=CPU)
+    assert rn == pn
+    assert_same_scene(rs, ps)
+    assert ps.quad_abgd.shape == (6, 4) and ps.quad_frame.shape == (6, 3, 3)
+    assert not ps.ww[ps.quad_tri.long()].any()
+
+
+def test_build_scene_optional_tables_bit_exact():
+    """Fluorescence and GRIN tables, coating stacks of unequal depth and
+    every optional per-triangle column."""
+    def els(m):
+        oe = m.optical_elements(8, 4)
+        return [
+            oe.cube((1.2, 1.2, 1.0), center=(0, 0, 1.5),
+                    material="refractive", ior=1.6, grin_a=4.0,
+                    axis=(0, 0, 1), grin_center=(0, 0, 1.0)),
+            oe.cube((2.0, 2.0, 1.0), center=(3, 0, 1.5),
+                    material="refractive", ior=1.2, fluorescence=1.5,
+                    fluor_yield=0.8, fluor_emission=(0.60, 0.05),
+                    fluor_edge=0.5, scattering=0.5, scatter_g=0.7),
+            oe.biconvex_lens(1.0, 0.8, 0.3, center=(0, 3, 1),
+                             coating=[(1.38, 0.1), (2.1, 0.05)]),
+            oe.rectangle(1, 1, center=(0, -3, 1), material="mirror",
+                         metal_n=0.2, metal_k=3.4, roughness=0.02),
+            oe.rectangle(1, 1, center=(-3, 0, 1), material="grating",
+                         axis=(1, 0, 0), grating_period=1.0,
+                         order0_fraction=0.1),
+            oe.cube(0.5, center=(0, 0, 4), material="birefringent",
+                    ior=1.658, ne=1.486, axis=(1, 0, 0)),
+            oe.disc(0.5, center=(0, 0, -2), material="waveplate",
+                    axis=(1, 1, 0), retardance=1.2),
+        ]
+
+    rs, _ = L.build_scene(els(L), spatial_sort=True)
+    ps, _ = P.build_scene(els(P), spatial_sort=True, device=CPU)
+    assert_same_scene(rs, ps)
+    assert ps.grin_wu.shape[0] % 128 == 0 and ps.fluor_icdf.shape[0] == 7

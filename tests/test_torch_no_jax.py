@@ -43,6 +43,33 @@ SCRIPT = textwrap.dedent("""
                                            mode=mode)
         assert abs(res.ledger["measured"] - 0.9) < 1e-3, res.ledger
     CL_Tracer(device="cpu").iterative_tracer(src, els, trace_iterations=3)
+    # a polarized beam through a coated lens onto a metal mirror, and an
+    # analytic (exact quadric) lens, in both modes
+    import numpy as np
+    coated = [oe.biconvex_lens(1.0, 0.8, 0.2, ior=1.5, center=(0, 0, 1.0),
+                               coating=[(1.38, 0.10), (2.1, 0.05)]),
+              oe.rectangle(1.5, 1.5, center=(0, 0, 2.5), material="mirror",
+                           metal_n=0.13, metal_k=3.9).rotate(
+                               (0, 1, 0), np.pi - 0.6, pivot=(0, 0, 2.5)),
+              oe.sphere(radius=8.0, material="measure", name="dome")]
+    beam = P.CollimatedSource(center=(0, 0, -0.5), direction=(0, 0, 1),
+                              diameter=0.5, ray_count=128, seed=3,
+                              stokes=(0.6, 0.8, 0.0))
+    exact = [*P.analytic_plano_convex_lens(0.5, 0.4, 0.05, ior=1.5),
+             P.analytic_disc(3.0, vertex=(0, 0, 2.5), name="det")]
+    for mode in ("device", "host"):
+        res = P.Tracer(device="cpu").trace(beam, coated, trace_iterations=5,
+                                           capacity=1024, mode=mode,
+                                           polarization=True)
+        assert res.power_conservation_error() < 1e-5, res.ledger
+        assert res.ledger["measured"] > 0.8, res.ledger
+        res = P.Tracer(device="cpu").trace(
+            P.CollimatedSource(center=(0, 0, -0.5), direction=(0, 0, 1),
+                               diameter=0.08, ray_count=128, seed=3),
+            exact, trace_iterations=6, capacity=1024, mode=mode)
+        assert res.power_conservation_error() < 1e-5, res.ledger
+        assert res.ledger["measured"] > 0.9, res.ledger
+    assert len(res.measured_power) >= 128
     # trace_batched with a checkpoint, and a ray file replayed
     import os, tempfile
     from lightpycl_tpu_torch.io import (RayFileSource, load_state,

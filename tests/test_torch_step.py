@@ -266,15 +266,30 @@ def test_trace_step_matches_reference(name):
 
 
 def test_unported_branches_raise():
+    """These switches once raised NotImplementedError; the branches are
+    ported, so each now shades the config-1 batch to a closed power balance
+    (the random ones given uniforms, and refusing to run without them)."""
     rs, rays, rcfg, pcfg = setup("config1")
     ps, pr = Scene.from_reference(rs, CPU), RayBatch.from_reference(rays, CPU)
-    t = torch.full((pr.capacity,), float("inf"))
-    tri = torch.full((pr.capacity,), -1, dtype=torch.int32)
+    t, tri = S.intersect(ps, pr.o, pr.d, pcfg)
+    live = float(pr.power[pr.alive].sum())
+    base = S.shade(ps, pr, t, tri, pcfg)
     for kw in (dict(polarization=True), dict(has_gratings=True),
                dict(has_coatings=True), dict(has_metals=True),
                dict(has_diffuse=True), dict(has_roughness=True)):
-        with pytest.raises(NotImplementedError):
-            S.shade(ps, pr, t, tri, pcfg.replace(**kw))
+        cfg = pcfg.replace(**kw)
+        random = cfg.has_diffuse or cfg.has_roughness
+        if random:
+            with pytest.raises(ValueError, match="uniforms"):
+                S.shade(ps, pr, t, tri, cfg)
+        un = S.draw_shade_uniforms(cfg, pr.capacity,
+                                   S.make_generator(CPU, 0), CPU)
+        sh = S.shade(ps, pr, t, tri, cfg, uniforms=un)
+        out = float(sh.absorbed + sh.escaped + sh.measured_power.sum()
+                    + sh.child_power.sum() + sh.policy_dropped)
+        assert out == pytest.approx(live, abs=1e-5), kw
+        # no element of config 1 uses the feature: the powers stay put
+        assert torch.equal(sh.child_power, base.child_power), kw
 
 
 @pytest.mark.parametrize("n_bins", [1, 7, 648])

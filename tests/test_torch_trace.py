@@ -212,11 +212,26 @@ UNPORTED = {
 
 @pytest.mark.parametrize("feature", sorted(UNPORTED))
 def test_unported_feature_raises(feature):
+    """The multi-device modes still raise, naming their ROADMAP item. The
+    two cfg switches this test once expected to raise (polarization,
+    track_paths) are ported: they now give the reference's result."""
     oe = P.optical_elements(8, 4)
     src = P.light_source(ray_count=16)
-    with pytest.raises(NotImplementedError, match=r"not ported"):
-        P.Tracer(device=CPU).trace(src, [oe.hemisphere(2.0)],
-                                   trace_iterations=1, **UNPORTED[feature])
+    kw = UNPORTED[feature]
+    if "mode" in kw:
+        with pytest.raises(NotImplementedError, match=r"ROADMAP A 7"):
+            P.Tracer(device=CPU).trace(src, [oe.hemisphere(2.0)],
+                                       trace_iterations=1, **kw)
+        return
+    port = P.Tracer(device=CPU).trace(src, [oe.hemisphere(2.0)],
+                                      trace_iterations=1, **kw)
+    ref = L.Tracer().trace(L.sources.light_source(ray_count=16),
+                           [L.optical_elements(8, 4).hemisphere(2.0)],
+                           trace_iterations=1, **kw)
+    assert port.ledger["measured"] == pytest.approx(1.0, abs=1e-6)
+    assert port.ledger == pytest.approx(ref.ledger, abs=1e-6)
+    assert np.array_equal(port.measured_path, ref.measured_path)
+    assert np.allclose(port.measured_stokes, ref.measured_stokes, atol=2e-5)
 
 
 SCENE_FEATURES = {
@@ -232,12 +247,24 @@ SCENE_FEATURES = {
 
 @pytest.mark.parametrize("feature", sorted(SCENE_FEATURES))
 def test_unported_scene_feature_raises(feature):
-    oe = P.optical_elements(8, 4)
-    el = oe.disc(0.5, center=(0, 0, 1), **SCENE_FEATURES[feature])
-    with pytest.raises(NotImplementedError, match=r"not ported"):
-        P.Tracer(device=CPU).trace(P.light_source(ray_count=16),
-                                   [el, oe.hemisphere(2.0)],
-                                   trace_iterations=1)
+    """Scenes with these elements once raised; the features are ported, so
+    each now traces in both modes with a closed ledger, and the ones that
+    draw no random numbers give the reference's ledger."""
+    def scene(M):
+        oe = M.optical_elements(8, 4)
+        return [oe.disc(0.5, center=(0, 0, 1), **SCENE_FEATURES[feature]),
+                oe.hemisphere(2.0)]
+
+    for mode in ("host", "device"):
+        port = P.Tracer(device=CPU).trace(P.light_source(ray_count=64),
+                                          scene(P), trace_iterations=3,
+                                          mode=mode)
+        assert port.power_conservation_error() < 1e-5
+        assert port.ledger["measured"] > 0.5
+    if feature in ("grating", "coating", "metal"):
+        ref = L.Tracer().trace(L.sources.light_source(ray_count=64),
+                               scene(L), trace_iterations=3, mode="device")
+        assert port.ledger == pytest.approx(ref.ledger, abs=1e-6)
 
 
 def test_unported_entry_points_raise():
