@@ -9,7 +9,10 @@ uses, Tracer.trace_batched on BASELINE config 4 at its full 100M rays, and
 the surface and volume physics at 524,288 rays: a polarized beam through a
 coated doublet onto a silver mirror and a grating; a diffuser, a rough
 mirror and a turbid fluorescent slab; an exact quadric lens beside its
-mesh; a gradient-index rod) and the epilogue-variant bench
+mesh; a gradient-index rod; Tracer.trace_spectral at the spectral benches'
+shapes: 32 wavelengths through a coated high reflector in one geometry
+pass, 16 through a dispersive prism wavelength-batched, and the white-light
+Michelson's per-wavelength field planes) and the epilogue-variant bench
 (variant_bench.micro_variants / epilogue_variants at the bench's intersect
 shape), holds every kernel against its plain torch version (the nearest-hit
 kernel also on rays built to sit on its reject margin, from edge_rays.py,
@@ -17,7 +20,7 @@ and on the rays and cull masks that the physics traces and config 4 really
 launch it with), and checks the physics (power ledger, detected power,
 statistics of the random branches, repeatability, checkpoint resume). It
 prints the kernel's resources, its times beside their bound, and the
-profiler's split of four warm traces. Any failed check raises, so the script exits
+profiler's split of six warm traces. Any failed check raises, so the script exits
 non-zero and prints no result. Without a CUDA device it exits non-zero at
 once. It imports nothing of JAX.
 
@@ -196,11 +199,21 @@ def hold_to_plain(PI, phase, bounce, launch, n_rays=CMP_RAYS):
           "rays and mask bitwise equal to the plain version")
 
 
-def profile_trace(fn, top=3):
+def _device_ms(ev):
+    ms = getattr(ev, "device_time_total", None)
+    if ms is None:
+        ms = getattr(ev, "cuda_time_total", 0.0)
+    return ms / 1e3
+
+
+def profile_trace(fn, top=3, span=None):
     """Device time of one trace fn() under torch.profiler: the nearest-hit
     kernel's and the rest's (with its `top` largest ops); beside it the
     trace's own wall (TraceResult.wall_time) from a call without the
-    profiler, and the device's idle share of that wall."""
+    profiler, and the device's idle share of that wall. `span` names a
+    torch.profiler.record_function range: the profiler lists it as a
+    device-side annotation (first to last kernel of each range), given as
+    `span_ms` and kept out of the kernel sums (its kernels are in `rest`)."""
     from torch.profiler import ProfilerActivity, profile
 
     wall = fn().wall_time * 1e3
@@ -209,26 +222,28 @@ def profile_trace(fn, top=3):
                              ProfilerActivity.CUDA]) as prof:
         res = fn()
         torch.cuda.synchronize()
-    kern, rest, tops = 0.0, 0.0, []
+    kern, rest, span_ms, tops = 0.0, 0.0, 0.0, []
     for ev in prof.key_averages():
         if ev.device_type.name != "CUDA":
             continue
-        ms = getattr(ev, "device_time_total", None)
-        if ms is None:
-            ms = getattr(ev, "cuda_time_total", 0.0)
-        ms /= 1e3
+        ms = _device_ms(ev)
         if ms <= 0:
             continue
-        if "nearest_hit_kernel" in ev.key:
+        if ev.key == span:
+            span_ms += ms
+        elif "nearest_hit_kernel" in ev.key:
             kern += ms
         else:
             rest += ms
             tops.append((ms, ev.key[:40].replace(" ", "_")))
     tops.sort(reverse=True)
-    return {"trace_wall_ms": wall, "bounces": res.iterations_run,
-            "kernel_ms": kern, "rest_ms": rest, "busy_ms": kern + rest,
-            "idle_share": f"{1 - (kern + rest) / wall:.4f}",
-            "top_rest": ",".join(f"{k}:{ms:.3f}" for ms, k in tops[:top])}
+    out = {"trace_wall_ms": wall, "bounces": res.iterations_run,
+           "kernel_ms": kern, "rest_ms": rest, "busy_ms": kern + rest,
+           "idle_share": f"{1 - (kern + rest) / wall:.4f}",
+           "top_rest": ",".join(f"{k}:{ms:.3f}" for ms, k in tops[:top])}
+    if span is not None:
+        out["span_ms"] = span_ms
+    return out
 
 
 def same_batched(a, b):
@@ -651,6 +666,332 @@ def physics_phases(P, PI):
           "the physics phases went through the kernel, culled on the "
           "collimated beam")
     return new_brute, new_cull
+
+
+SPEC_RAYS = 1 << 19   # benchmarks/spectral_bench.py: rays, in 2x the slots,
+SPEC_W = 32           # wavelengths,
+SPEC_ITERS = 10       # bounces
+DISP_RAYS = 1 << 14   # benchmarks/dispersive_bench.py: rays a wavelength,
+DISP_W = 16           # in 4x the slots, wavelengths,
+DISP_ITERS = 6        # bounces
+MICH_RAYS = 1 << 16   # the white-light Michelson (8x the slots, 6 bounces)
+MICHELSON_MAP = dict(coherent=True, image_bins=32,
+                     image_center=(1.5, 0.0, 0.0),
+                     image_normal=(1.0, 0.0, 0.0), image_halfwidth=0.6)
+SPECTRAL_FIELDS = ("per_detector_spectrum", "hist", "image", "per_detector")
+
+
+def hr_window(P):
+    """benchmarks/spectral_bench.py's scene: an (HL)^3 high reflector at
+    0.55 um on a window (36,364 triangles with the rest), two measuring
+    discs, a terminating shell."""
+    n_hi, n_lo = 2.35, 1.46
+    stack = [(n_hi, 0.55 / (4 * n_hi)), (n_lo, 0.55 / (4 * n_lo))] * 3
+    oe = P.optical_elements(n_segments=128, n_radial=48)
+    return [oe.cube(size=(1.2, 1.2, 0.3), material="refractive", ior=1.52,
+                    coating=stack, name="hr"),
+            oe.disc(radius=2.0, center=(0, 0, 2.0), material="measure",
+                    name="T"),
+            oe.disc(radius=2.0, center=(0, 0, -2.0), material="measure",
+                    name="R"),
+            oe.sphere(radius=8.0, material="terminator")]
+
+
+def sf10_prism(P):
+    """benchmarks/dispersive_bench.py's scene: an SF10 (Cauchy) prism in a
+    measuring dome (5,960 triangles)."""
+    from lightpycl_tpu_torch.materials import SF10
+
+    oe = P.optical_elements(n_segments=96, n_radial=32)
+    prism = oe.prism(width=1.04, height=0.3, length=1.0, ior=SF10[0])
+    prism.dispersion_b = SF10[1]
+    return [prism, oe.sphere(10.0, material="measure", name="dome")]
+
+
+def michelson(P, arm):
+    """examples/example_michelson.py: a 50/50 beamsplitter at 45 degrees,
+    two arm mirrors (one moved out by `arm`), the output port's panel."""
+    oe = P.optical_elements(n_segments=16, n_radial=6)
+    return [oe.rectangle(2.0, 2.0, material="beamsplitter",
+                         reflectivity=0.5).rotate((0, 1, 0), np.pi / 4),
+            oe.rectangle(2.0, 2.0, material="mirror").rotate(
+                (0, 1, 0), np.pi / 2).translate((-1.5 - arm, 0, 0)),
+            oe.rectangle(2.0, 2.0, material="mirror").rotate(
+                (0, 1, 0), np.pi).translate((0, 0, 1.5)),
+            oe.rectangle(2.0, 2.0, material="measure", name="output").rotate(
+                (0, 1, 0), -np.pi / 2).translate((1.5, 0, 0))]
+
+
+def same_spectral(a, b):
+    """Two spectral results equal bit for bit: ledgers, spectra, maps."""
+    return (a.ledger == b.ledger and a.final_live_power == b.final_live_power
+            and all(np.array_equal(a.spectral_ledger[k], b.spectral_ledger[k])
+                    for k in a.spectral_ledger)
+            and all(np.array_equal(getattr(a, f), getattr(b, f))
+                    for f in SPECTRAL_FIELDS))
+
+
+class FilmTap:
+    """While active, wraps physics.multilayer_reflectance, the film stack
+    of the shared spectral step: each call runs inside a
+    torch.profiler.record_function('film_stack') range, and the first
+    call's arguments are kept (cloned) to time the stack alone."""
+
+    def __init__(self, physics):
+        self.physics, self.args = physics, None
+
+    def __enter__(self):
+        self.orig = fn = self.physics.multilayer_reflectance
+
+        def clone(a):
+            if isinstance(a, torch.Tensor):
+                return a.clone()
+            return [clone(x) for x in a] if isinstance(a, list) else a
+
+        def wrapped(*args):
+            if self.args is None:
+                self.args = [clone(a) for a in args]
+            with torch.profiler.record_function("film_stack"):
+                return fn(*args)
+
+        self.physics.multilayer_reflectance = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.physics.multilayer_reflectance = self.orig
+
+
+def counted(PI, fn):
+    """fn()'s result and the (brute, culled) kernel launches it made."""
+    PI.nearest_hit_cuda.launches = 0
+    PI.nearest_hit_cuda.cull_launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    cull = PI.nearest_hit_cuda.cull_launches
+    return out, PI.nearest_hit_cuda.launches - cull, cull
+
+
+def spectral_phases(P, PI):
+    """Phases 19-22: spectral tracing at the repository's spectral benches'
+    shapes. Returns the (brute, culled) kernel launches of the counted
+    traces."""
+    from lightpycl_tpu_torch import physics
+    from lightpycl_tpu_torch import spectral as PS
+
+    # ---- 19. shared geometry: spectral_bench's shape, unreduced ---------
+    els = hr_window(P)
+    o, d, p = P.CollimatedSource(center=(0, 0, -1.0), direction=(0, 0, 1),
+                                 diameter=0.6, ray_count=SPEC_RAYS,
+                                 power=1.0, seed=7).sample()
+    wls = np.linspace(0.40, 0.75, SPEC_W)
+
+    def rays(n=SPEC_RAYS, wl=None):
+        return P.RayBatch.from_arrays(o[:n], d[:n], p[:n], capacity=2 * n,
+                                      wavelengths=wl, device="cuda")
+
+    def spec(n=SPEC_RAYS, **kw):
+        return P.Tracer().trace_spectral(None, wls, elements=els,
+                                         trace_iterations=SPEC_ITERS,
+                                         rays=rays(n), **kw)
+
+    spec()  # first use
+    torch.cuda.reset_peak_memory_stats()
+    with LaunchTap(PI, (0, 3)) as tap:
+        res, brute_s, cull_s = counted(PI, spec)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    runs = [res, spec(), spec()]
+    check(all(same_spectral(res, r) for r in runs[1:]),
+          "phase 19 repeat runs bit-identical")
+    wall = min(r.wall_time for r in runs)
+    check(res.rays_traced == 2 * SPEC_RAYS * SPEC_ITERS,
+          "phase 19 took the shared method (one geometry pass)")
+    check(cull_s == SPEC_ITERS and brute_s == 0,
+          "phase 19: auto-cull on, one culled launch a bounce")
+    peak_wl = float(wls[res.detector_spectrum("R").argmax()])
+    check(abs(peak_wl - 0.55) < 0.03,
+          "phase 19: the high reflector's peak at its design wavelength")
+    # every column closes: the module entry point the engine calls, on the
+    # same rays, returns the live remainder by column
+    per_det, led, _, sr, _ = PS.trace_spectral(
+        els, rays(), wls, cfg=P.TraceConfig(cull=True),
+        iterations=SPEC_ITERS)
+    live = torch.sum(torch.where(sr.alive[:, None], sr.P, 0.0), dim=0)
+    col_err = float((led.emitted - led.accounted() - live).abs().max())
+    check(col_err <= 1e-5, "phase 19: every ledger column closes to 1e-5")
+    check(np.array_equal(per_det.cpu().numpy(), res.per_detector_spectrum),
+          "phase 19: spectral.trace_spectral == Tracer.trace_spectral")
+    del per_det, led, sr, live
+
+    def scalar(wl):
+        return P.Tracer().trace(None, els, trace_iterations=SPEC_ITERS,
+                                rays=rays(wl=wl), mode="device",
+                                dissipation_target=1.0)
+
+    scalar(0.55)
+    t_scalar = scalar(0.55).wall_time
+    worst = 0.0
+    for k in (0, int(np.abs(wls - 0.55).argmin()), SPEC_W - 1):
+        r = scalar(float(wls[k]))
+        for j, name in enumerate(res.detector_names):
+            a = float(res.per_detector_spectrum[j, k]) * SPEC_W
+            b = r.detector_power(name)
+            worst = max(worst, abs(a - b) / max(abs(b), 1e-12))
+            check(abs(a - b) <= 2e-4 * abs(b) + 1e-6,
+                  f"phase 19: column {k} on {name} == the scalar trace")
+    kept = {}
+    for bounce, launch in sorted(tap.kept.items()):
+        scene, lo, _, _, _, mask = launch
+        check(mask is not None, "phase 19 launches are culled")
+        kept[bounce] = kept_pairs(mask, lo.shape[0], scene.wu.shape[0],
+                                  PI.RAY_BLOCK, PI.TRI_TILE)
+        hold_to_plain(PI, "19", bounce, launch)
+    T_s = tap.kept[0][0].wu.shape[0]
+    del tap, launch, scene, lo, mask
+    small = {b: spec(PHYS_CMP_RAYS, cull=False, backend=b)
+             for b in ("cuda", "torch")}
+    check(same_spectral(small["cuda"], small["torch"]),
+          "phase 19 kernel equal to backend='torch' in every field")
+    line("19 spectral shared", rays=SPEC_RAYS, capacity=2 * SPEC_RAYS,
+         wavelengths=SPEC_W, bounces=SPEC_ITERS, triangles=T_s,
+         wall_s=wall, walls=",".join(f"{r.wall_time:.4f}" for r in runs),
+         source_rays_per_s=f"{SPEC_RAYS / wall:.6e}",
+         scalar_wall_s=t_scalar,
+         speedup_vs_scalar_spectrum=f"{SPEC_W * t_scalar / wall:.4f}",
+         peak_wl=peak_wl, measured=res.ledger["measured"],
+         live=res.final_live_power, column_closure_err=col_err,
+         scalar_column_rel_err=worst,
+         kept_pairs=",".join(f"{b}:{n}" for b, n in kept.items()),
+         kept_share=",".join(f"{b}:{n / (2 * SPEC_RAYS * T_s):.5f}"
+                             for b, n in kept.items()),
+         peak_mem_gib=f"{peak:.3f}", launches=brute_s + cull_s,
+         cull_launches=cull_s, plain_rays=PHYS_CMP_RAYS,
+         plain_wall_s=small["torch"].wall_time,
+         kernel_wall_s=small["cuda"].wall_time)
+    del small
+
+    # ---- 20. wavelength-batched: dispersive_bench's shape, unreduced -----
+    els2 = sf10_prism(P)
+    o2, d2, p2 = P.CollimatedSource(center=(0.3, -0.5, 0),
+                                    direction=(0, 1, 0), diameter=0.04,
+                                    ray_count=DISP_RAYS, power=1.0,
+                                    seed=7).sample()
+    wl2 = np.linspace(0.38, 0.70, DISP_W)
+
+    def rays2(wl=None):
+        return P.RayBatch.from_arrays(o2, d2, p2, capacity=4 * DISP_RAYS,
+                                      wavelengths=wl, device="cuda")
+
+    def batched():
+        return P.Tracer().trace_spectral(None, wl2, elements=els2,
+                                         trace_iterations=DISP_ITERS,
+                                         rays=rays2())
+
+    batched()  # first use
+    torch.cuda.reset_peak_memory_stats()
+    with LaunchTap(PI, (1,)) as tap2:  # inside the prism
+        res2, brute_b, cull_b = counted(PI, batched)
+    peak2 = torch.cuda.max_memory_allocated() / 2 ** 30
+    runs2 = [res2, batched(), batched()]
+    check(all(same_spectral(res2, r) for r in runs2[1:]),
+          "phase 20 repeat runs bit-identical")
+    wall2 = min(r.wall_time for r in runs2)
+    check(res2.rays_traced == DISP_W * 4 * DISP_RAYS * DISP_ITERS,
+          "phase 20 took the batched method (W geometry passes)")
+    check(cull_b == DISP_ITERS, "phase 20: auto-cull on")
+
+    def scalar2(wl):
+        return P.Tracer().trace(None, els2, trace_iterations=DISP_ITERS,
+                                rays=rays2(float(wl)), mode="device",
+                                dissipation_target=1.0)
+
+    scalar2(wl2[0])
+    seq = [scalar2(w) for w in wl2]
+    t_seq = sum(r.wall_time for r in seq)
+    worst2 = 0.0
+    for k, r in enumerate(seq):
+        a = float(res2.per_detector_spectrum[0, k]) * DISP_W
+        b = r.detector_power("dome")
+        worst2 = max(worst2, abs(a - b) / b)
+        check(abs(a - b) <= 5e-4 * b + 1e-6,
+              f"phase 20: column {k} dome power == the scalar trace")
+    per_dw, _, _, rays_out, _, led_w, _ = PS.trace_spectral_dispersive(
+        els2, rays2(), wl2, cfg=P.TraceConfig(cull=True),
+        iterations=DISP_ITERS)
+    grid = torch.as_tensor(wl2, dtype=torch.float32, device="cuda")
+    idx = torch.argmin(torch.abs(rays_out.wavelength[:, None] - grid), dim=1)
+    live2 = torch.bincount(idx, torch.where(rays_out.alive, rays_out.power,
+                                            0.0).double(), DISP_W)
+    col_err2 = float((led_w.emitted.double() - led_w.accounted().double()
+                      - live2).abs().max())
+    check(col_err2 <= 1e-5, "phase 20: every ledger column closes to 1e-5")
+    check(np.array_equal(per_dw.cpu().numpy(), res2.per_detector_spectrum),
+          "phase 20: spectral.trace_spectral_dispersive == the engine's")
+    del per_dw, rays_out, led_w, idx, live2
+    hold_to_plain(PI, "20", 1, tap2.kept[1])
+    del tap2
+    line("20 spectral batched", rays_per_wavelength=DISP_RAYS,
+         wavelengths=DISP_W, slots=DISP_W * 4 * DISP_RAYS,
+         bounces=DISP_ITERS, triangles=sum(e.num_triangles for e in els2),
+         wall_s=wall2, walls=",".join(f"{r.wall_time:.4f}" for r in runs2),
+         sequential_scalar_s=t_seq,
+         speedup_vs_sequential=f"{t_seq / wall2:.4f}",
+         measured=res2.ledger["measured"], live=res2.final_live_power,
+         column_closure_err=col_err2, scalar_column_rel_err=worst2,
+         peak_mem_gib=f"{peak2:.3f}", launches=brute_b + cull_b,
+         cull_launches=cull_b)
+
+    # ---- 21. white-light Michelson: per-wavelength field planes ----------
+    o3, d3, p3 = P.CollimatedSource(center=(0, 0, -2.0), direction=(0, 0, 1),
+                                    diameter=0.5, power=1.0,
+                                    ray_count=MICH_RAYS, seed=1).sample()
+    wl3 = np.linspace(0.45, 0.60, 6)
+
+    def white(arm):
+        return P.Tracer().trace_spectral(
+            None, wl3, elements=michelson(P, arm), trace_iterations=6,
+            rays=P.RayBatch.from_arrays(o3, d3, p3, capacity=8 * MICH_RAYS,
+                                        device="cuda"), **MICHELSON_MAP)
+
+    (w0, w4), brute_w, cull_w = counted(PI, lambda: (white(0.0), white(4.0)))
+    a = w0.image_amp_spectral
+    check(a.shape == (6, 2, 32, 32) and w0.image_amp is None,
+          "phase 21: one field plane a wavelength")
+    check(np.array_equal(w0.image_coherent,
+                         (a[:, 0] ** 2 + a[:, 1] ** 2).sum(axis=0)),
+          "phase 21: image_coherent is the planes' intensities summed")
+    i0, i4 = w0.image_coherent.sum(), w4.image_coherent.sum()
+    check(i4 < 0.75 * i0, "phase 21: the fringe envelope falls at 4.0")
+    for r in (w0, w4):
+        check(abs(r.detector_power("output") - 0.5) <= 1e-3
+              and r.power_conservation_error() <= 1e-5,
+              "phase 21: 2RT = 0.5 at the output port, ledger closed")
+    line("21 white light", rays=MICH_RAYS, slots=6 * 8 * MICH_RAYS,
+         wavelengths=6, intensity_0=i0, intensity_4=i4,
+         envelope_ratio=f"{i4 / i0:.4f}",
+         output_power=w0.detector_power("output"), wall_0_s=w0.wall_time,
+         wall_4_s=w4.wall_time, launches=brute_w + cull_w,
+         cull_launches=cull_w)
+    del w0, w4, a
+
+    # ---- 22. where the spectral traces' device time goes -----------------
+    with FilmTap(physics) as film:
+        split = profile_trace(spec, top=6, span="film_stack")
+    film_ms = cuda_ms(lambda: physics.multilayer_reflectance(*film.args))
+    del film
+    check(split["kernel_ms"] > 0, "phase 19 trace: profiler saw the kernel")
+    film_total = split.pop("span_ms")
+    check(film_total > 0, "phase 19 trace: profiler saw the film stack")
+    line("22 profile shared", film_stack_ms=film_total,
+         other_ms=split["busy_ms"] - split["kernel_ms"] - film_total,
+         film_stack_one_bounce_ms=film_ms,
+         kernel_share_of_busy=f"{split['kernel_ms'] / split['busy_ms']:.4f}",
+         film_share_of_busy=f"{film_total / split['busy_ms']:.4f}", **split)
+    split2 = profile_trace(batched, top=6)
+    check(split2["kernel_ms"] > 0, "phase 20 trace: profiler saw the kernel")
+    line("22 profile batched", film_stack_ms=0.0,
+         kernel_share_of_busy=(
+             f"{split2['kernel_ms'] / split2['busy_ms']:.4f}"), **split2)
+    return brute_s + brute_b + brute_w, cull_s + cull_b + cull_w
 
 
 def main():
@@ -1103,6 +1444,7 @@ def main():
     line("12 profile config4", **split4)
 
     new_brute, new_cull = physics_phases(P, PI)
+    spec_brute, spec_cull = spectral_phases(P, PI)
 
     # ---- 18. the epilogue variants (V1, V2): the two bench entry points at
     #          the bench's intersect shape, then each kernel against its
@@ -1183,9 +1525,9 @@ def main():
         {"name": "nearest_hit (B1, brute)", "route": "cuda",
          "source": KERNEL_SRC, "replaces": f"{TPU_KERNEL}:154",
          "launches": (launches - cull_launches + launches4 - cull_launches4
-                      + new_brute),
+                      + new_brute + spec_brute),
          "launches_trace_batched": launches4 - cull_launches4,
-         "launches_physics": new_brute,
+         "launches_physics": new_brute, "launches_spectral": spec_brute,
          "max_abs_err": b1_err,
          "ms": b1_ms, "plain_ms": b1_plain_ms, "bound_ms": b1_bound_ms,
          "bound_by": b1_bound_by, "share_of_bound": b1_bound_ms / b1_ms,
@@ -1193,9 +1535,10 @@ def main():
          "rays": BENCH_RAYS, "plain_rays": CMP_RAYS, "triangles": n_tris},
         {"name": "nearest_hit (B2, cull)", "route": "cuda",
          "source": KERNEL_SRC, "replaces": f"{TPU_KERNEL}:185",
-         "launches": cull_launches + cull_launches4 + new_cull,
+         "launches": cull_launches + cull_launches4 + new_cull + spec_cull,
          "launches_trace_batched": cull_launches4,
-         "launches_physics": new_cull, "max_abs_err": b2_err,
+         "launches_physics": new_cull, "launches_spectral": spec_cull,
+         "max_abs_err": b2_err,
          "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound_ms,
          "bound_by": b2_bound_by, "share_of_bound": b2_bound_ms / b2_ms,
          "library_ms": None, "pairs": b2_pairs,

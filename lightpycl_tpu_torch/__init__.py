@@ -15,7 +15,8 @@ diffuse and rough surfaces, turbid and fluorescent media, GRIN, path
 tracking), the exact quadric surfaces, the optional detector maps and
 roulette, and the batched mega-ray tracer `Tracer.trace_batched` with the
 sources' device samplers, checkpoint / resume and ray-file replay
-(`lightpycl_tpu_torch.io`); unported entry points (spectral, diff,
+(`lightpycl_tpu_torch.io`), and spectral tracing (`Tracer.trace_spectral`,
+`lightpycl_tpu_torch.spectral`); unported entry points (diff,
 multi-device) raise NotImplementedError (ROADMAP.md).
 """
 

@@ -6,8 +6,8 @@ Port counterpart of lightpycl_tpu/compat.py: `CL_Tracer` with
 is fed only by the surface and volume physics (Stokes fractions and path
 signatures come back in TraceResult.measured_stokes / measured_path). Its
 plotting, directivity, beam statistics and DXF export need the analysis / io
-layers and are not ported yet (ROADMAP A 8), nor is the spectral upgrade of
-iterative_tracer (ROADMAP A 5).
+layers and are not ported yet (ROADMAP A 8). `iterative_tracer(wavelengths=)`
+is the one-keyword spectral upgrade of a script (Tracer.trace_spectral).
 
     from lightpycl_tpu_torch.compat import (CL_Tracer, optical_elements,
                                             light_source)
@@ -69,14 +69,24 @@ class CL_Tracer(Tracer):
         """Run the full iterative trace (the reference's main entry
         point). Measured rays are harvested per iteration (host mode).
         `power_dissipated` is the reference's early-exit fraction (alias of
-        dissipation_target)."""
-        if wavelengths is not None or spectral_weights is not None:
-            raise NotImplementedError(
-                "spectral tracing (iterative_tracer(wavelengths=...)) is not "
-                "ported to lightpycl_tpu_torch yet (ROADMAP A 5: "
-                "spectral.py)")
+        dissipation_target).
+
+        `wavelengths` (um) turns the same script spectral: one
+        Tracer.trace_spectral run (device mode, no early exit, no per-ray
+        harvest) whose TraceResult also carries per_detector_spectrum
+        (D, W); `spectral_weights` splits the power over the wavelengths
+        (default uniform)."""
         if power_dissipated is not None:
             kw.setdefault("dissipation_target", float(power_dissipated))
+        if wavelengths is not None:
+            kw.pop("dissipation_target", None)  # no early exit in spectral
+            mode = kw.pop("mode", "device")
+            return self.trace_spectral(
+                light_source, wavelengths, elements=meshes,
+                weights=spectral_weights,
+                trace_iterations=int(trace_iterations),
+                max_ray_len=float(max_ray_len), ior_env=float(ior_env),
+                mode=mode, **kw)
         mode = kw.pop("mode", "host")
         if record_paths is None:
             record_paths = self._record_paths_default and mode == "host"

@@ -22,11 +22,13 @@ The tracer runs on an explicit `device` (default CUDA; the CPU only when
 asked for). Every scene the reference's `trace` accepts in these modes is
 accepted here (polarized, coated, metallic, diffracting, birefringent,
 diffuse, rough, turbid, fluorescent, gradient-index and analytic elements,
-path tracking in host mode); the entry points still unported (spectral,
-multi-device) raise NotImplementedError naming their ROADMAP item. The
-reference's own quirks in `_resolve_ray_len`
-(an explicit max_ray_len equal to the default counts as unset; the reach
-includes dead padding slots' origins) are reproduced, not fixed.
+path tracking in host mode), and `trace_spectral` (the shared-geometry and
+wavelength-batched methods of spectral.py, device mode) accepts every
+scene the reference's does; the multi-device modes raise
+NotImplementedError naming their ROADMAP item. The reference's own quirks
+in `_resolve_ray_len` (an explicit max_ray_len equal to the default counts
+as unset; the reach includes dead padding slots' origins) are reproduced,
+not fixed.
 """
 
 from __future__ import annotations
@@ -132,9 +134,16 @@ class TraceResult:
     wall_time: float
     segments: list                # [(starts, ends, alive)] if record_paths
     final_live_power: float
+    # spectral runs only (Tracer.trace_spectral); None on scalar traces
+    per_detector_spectrum: Optional[np.ndarray] = None  # (D, W)
+    wavelengths: Optional[np.ndarray] = None            # (W,) [um]
+    spectral_ledger: Optional[dict] = None  # each entry (W,) per-lambda
     # coherent runs only (TraceConfig.coherent): (2, nb, nb) re/im field
     # amplitude sums over measured rays
     image_amp: Optional[np.ndarray] = None
+    # coherent spectral runs: (W, 2, nb, nb) per-wavelength field planes
+    # (each wavelength interferes only with itself)
+    image_amp_spectral: Optional[np.ndarray] = None
     # flux-map runs only: (T,) incident power per scene triangle, T the real
     # triangle count in scene order (spatially sorted when cull is on)
     tri_flux: Optional[np.ndarray] = None
@@ -167,6 +176,16 @@ class TraceResult:
         if name not in self.detector_names:
             raise KeyError(f"unknown detector {name!r}; have {self.detector_names}")
         return float(self.per_detector[self.detector_names.index(name)])
+
+    def detector_spectrum(self, name: str) -> np.ndarray:
+        """(W,) per-wavelength measured power on the named detector
+        (spectral runs only: Tracer.trace_spectral)."""
+        if self.per_detector_spectrum is None:
+            raise ValueError("not a spectral run: use Tracer.trace_spectral"
+                             " (or iterative_tracer(..., wavelengths=...))")
+        if name not in self.detector_names:
+            raise KeyError(f"unknown detector {name!r}; have {self.detector_names}")
+        return self.per_detector_spectrum[self.detector_names.index(name)]
 
     def detector_stderr(self, name: str) -> float:
         """Monte-Carlo standard error of detector_power(name) from the
@@ -212,8 +231,13 @@ class TraceResult:
 
     @property
     def image_coherent(self) -> np.ndarray:
-        """(nb, nb) interference intensity |sum_rays sqrt(P) e^{i phi}|^2 per
-        pixel (the fringe pattern; `image` stays the incoherent sum)."""
+        """(nb, nb) interference intensity per pixel, the fringe pattern
+        (`image` stays the incoherent sum): |sum_rays sqrt(P) e^{i phi}|^2,
+        or on a spectral run the per-wavelength intensities summed
+        (wavelengths are mutually incoherent: the white-light pattern)."""
+        if self.image_amp_spectral is not None:
+            a = self.image_amp_spectral
+            return (a[:, 0] ** 2 + a[:, 1] ** 2).sum(axis=0)
         a = self.image_complex
         return a.real ** 2 + a.imag ** 2
 
@@ -330,10 +354,168 @@ class Tracer:
             result.wall_time, result.tests_per_second, result.rays_per_second)
         return result
 
-    def trace_spectral(self, *args, **kwargs):
-        raise NotImplementedError(
-            "trace_spectral is not ported to lightpycl_tpu_torch yet "
-            "(ROADMAP A 5: spectral.py)")
+    def trace_spectral(self, source, wavelengths, elements=None,
+                       weights=None, trace_iterations=None,
+                       capacity=None, mode: str = "device", mesh=None,
+                       rays=None, method: str = "auto",
+                       **cfg_overrides) -> TraceResult:
+        """Spectral trace: the TraceResult has the angular histogram,
+        per-detector totals, planar image and ledger of a scalar trace,
+        plus `per_detector_spectrum` (D, W), `wavelengths` and the
+        per-wavelength `spectral_ledger`. `weights` split each ray's power
+        over the wavelengths (default uniform).
+
+        `method`:
+          * 'shared': ONE geometry pass carries W spectral samples per ray
+            (spectral.trace_spectral). Needs achromatic geometry (no
+            dispersive glass, gratings, polarization optics, diffuse).
+          * 'batched': every wavelength gets a stamped copy of the rays and
+            one trace of W x C rays runs the full scalar physics
+            (spectral.trace_spectral_dispersive).
+          * 'auto' (default): 'shared' where the scene qualifies, else
+            'batched'. Coherent runs always take 'batched' (one field plane
+            a wavelength).
+
+        Only mode='device' is ported ('multichip' and `mesh` wait for
+        ROADMAP A 7). rays_traced / intersection_tests count geometry
+        passes: once for 'shared', W-fold for 'batched'."""
+        from lightpycl_tpu_torch import spectral as spectral_mod
+
+        _refuse_multi_device(mode, mesh)
+        cfg = self.cfg
+        if trace_iterations is not None:
+            cfg_overrides["trace_iterations"] = int(trace_iterations)
+        if cfg_overrides:
+            cfg = cfg.replace(**cfg_overrides)
+        if elements is not None:
+            self.set_elements(elements)
+        if self.scene is None:
+            raise ValueError("no scene: pass `elements` or call set_elements()")
+        if cfg.coherent:
+            if cfg.image_bins == 0:
+                raise ValueError(
+                    "coherent=True accumulates the complex field on the "
+                    "image plane: set image_bins too")
+            if method == "shared":
+                raise ValueError(
+                    "coherent spectral tracing needs the wavelength-BATCHED "
+                    "method (per-lambda field planes); use method='batched' "
+                    "or 'auto'")
+            method = "batched"
+        if rays is None:
+            origins, dirs, powers = source.sample()
+            # a source's own spectrum would be overridden by the grid
+            wl_attr = getattr(source, "wavelength", None)
+            if isinstance(wl_attr, (tuple, list, np.ndarray)):
+                log.warning("trace_spectral ignores the source's own "
+                            "wavelength spectrum; the `wavelengths` grid "
+                            "+ `weights` define the spectral sampling")
+            rays = RayBatch.from_arrays(origins, dirs, powers,
+                                        ior_env=cfg.ior_env,
+                                        capacity=capacity,
+                                        device=self.device)
+        if method not in ("auto", "shared", "batched"):
+            raise ValueError(f"trace_spectral method must be 'auto', "
+                             f"'shared' or 'batched', got {method!r}")
+        cfg = self._resolve_ray_len(cfg, origins=rays.o.cpu().numpy())
+        cfg = self._resolve_cull(cfg, mode, rays=rays)
+        # flux and time maps are wavelength-integrated: the shared path
+        # deposits row-total power, the batched path runs the scalar maps
+        self._check_flux_map(cfg, mode)
+        self._check_time_bins(cfg)
+        if any(getattr(e, "fluorescence", 0.0) > 0.0 for e in self.elements):
+            raise ValueError(
+                "trace_spectral assumes wavelengths are conserved, but the "
+                "scene fluoresces (conversion rewrites the carried "
+                "wavelength, so per-lambda columns cannot close). Trace "
+                "scalar with the source's wavelength instead: the measured-"
+                "ray harvest carries per-ray wavelengths and "
+                "analysis.spectral_power / cie_xyz bin the output spectrum")
+        if method == "auto":
+            try:
+                spectral_mod.validate_spectral_scene(self.elements)
+                method = "shared"
+            except ValueError:
+                method = "batched"
+        if mode != "device":
+            what = ("trace_spectral(method='batched') mode"
+                    if method == "batched" else "trace_spectral mode")
+            raise ValueError(f"{what} must be 'device' or 'multichip', "
+                             f"got {mode!r}")
+        C = rays.capacity
+        W = len(np.atleast_1d(np.asarray(wavelengths)))
+        emitted_rows = float(torch.sum(torch.where(rays.alive, rays.power,
+                                                   0.0)))
+        log.info("spectral trace start: capacity %d, %d wavelengths, "
+                 "%d triangles, %d iterations, device=%s, method=%s", C, W,
+                 self.num_triangles, cfg.trace_iterations, self.device,
+                 method)
+        self._sync()
+        t0 = time.perf_counter()
+        if method == "batched":
+            cfg_b = self._check_polarization(self._tune_splitting(cfg))
+            per_det, led, det_names, rays_out, det, led_w, amp_w = (
+                spectral_mod.trace_spectral_dispersive(
+                    self.elements, rays, wavelengths, weights=weights,
+                    cfg=cfg_b, iterations=cfg.trace_iterations))
+            live = torch.sum(torch.where(rays_out.alive, rays_out.power,
+                                         0.0))
+            image_amp_spectral = amp_w if cfg.coherent else None
+            geom_rays = W * C
+        else:
+            per_det, led_w, det_names, sr, det = spectral_mod.trace_spectral(
+                self.elements, rays, wavelengths, weights=weights, cfg=cfg,
+                iterations=cfg.trace_iterations)
+            live = torch.sum(torch.where(sr.alive[:, None], sr.P, 0.0))
+            led = Ledger(*(torch.sum(x) for x in led_w))
+            image_amp_spectral = None
+            geom_rays = C
+        # one transfer of the ledgers and the live power
+        scalars = torch.cat([torch.stack(list(led)), live[None],
+                             torch.stack(list(led_w)).reshape(-1)]).cpu()
+        self._sync()
+        wall = time.perf_counter() - t0
+        scalars = scalars.numpy()
+        ledger = dict(zip(Ledger._fields, scalars[:5].tolist()))
+        spectral_ledger = dict(zip(Ledger._fields,
+                                   scalars[6:].reshape(5, -1)))
+        per_det = per_det.cpu().numpy()
+        real_tris = self.num_triangles
+        result = TraceResult(
+            *_no_measured_rays(),
+            hist=det.hist.cpu().numpy(),
+            per_detector=per_det.sum(axis=1),
+            image=det.image.cpu().numpy(),
+            detector_names=list(det_names),
+            ledger=ledger,
+            iterations_run=cfg.trace_iterations,
+            rays_traced=geom_rays * cfg.trace_iterations,
+            intersection_tests=(geom_rays * cfg.trace_iterations
+                                * real_tris),
+            wall_time=wall,
+            segments=[],
+            final_live_power=float(scalars[5]),
+            per_detector_spectrum=per_det,
+            wavelengths=np.atleast_1d(np.asarray(wavelengths, np.float32)),
+            spectral_ledger=spectral_ledger,
+            image_amp_spectral=(None if image_amp_spectral is None
+                                else image_amp_spectral.cpu().numpy()),
+            tri_flux=(det.tri_flux.cpu().numpy()[:real_tris]
+                      if det.tri_flux.shape[0] > 1 else None),
+            time_hist=(det.time_hist.cpu().numpy()
+                       if cfg.time_bins > 0 else None),
+            opl_edges=_opl_edges(cfg),
+            device=str(self.device))
+        # the ledger's emitted power must be the rays' own
+        if abs(ledger["emitted"] - emitted_rows) >= 1e-4 * max(emitted_rows,
+                                                                1.0):
+            raise RuntimeError(
+                f"spectral ledger emitted {ledger['emitted']} != the rays' "
+                f"{emitted_rows}")
+        self.last_result = result
+        log.info("spectral trace done (%s): %.3fs, %.3g tests/s",
+                 method, wall, result.tests_per_second)
+        return result
 
     def _detector_zeros(self, cfg: TraceConfig) -> DetectorState:
         return DetectorState.zeros(

@@ -1162,14 +1162,16 @@ def shade(scene: Scene, rays: RayBatch, t, tri, cfg: TraceConfig,
 # --------------------------------------------------------------------------
 
 def bincount_sorted(idx: torch.Tensor, vals: torch.Tensor, n_bins: int):
-    """Weighted bincount (n_bins,) of vals at idx in [0, n_bins),
-    deterministic on CPU and CUDA: a stable sort by bin, then a segmented
-    inclusive scan with a fixed (Hillis-Steele) association, so every run
-    adds the same numbers in the same order, with no atomics; log2(C)
-    elementwise passes. (PyTorch's deterministic index_put_ accumulates each
-    bin serially in one warp: 23 ms for 524,288 rays into one detector bin
-    on an H100.)"""
-    out = torch.zeros(n_bins, dtype=vals.dtype, device=vals.device)
+    """Weighted bincount (n_bins, ...) of the rows of vals (n, ...) at idx
+    in [0, n_bins), deterministic on CPU and CUDA: a stable sort by bin,
+    then a segmented inclusive scan with a fixed (Hillis-Steele)
+    association, so every run adds the same numbers in the same order, with
+    no atomics; log2(n) elementwise passes. Each column of a 2-D vals sums
+    exactly as it would alone. (PyTorch's deterministic index_put_
+    accumulates each bin serially in one warp: 23 ms for 524,288 rays into
+    one detector bin on an H100.)"""
+    out = torch.zeros((n_bins,) + tuple(vals.shape[1:]), dtype=vals.dtype,
+                      device=vals.device)
     n = idx.shape[0]
     if n == 0:
         return out
@@ -1178,10 +1180,12 @@ def bincount_sorted(idx: torch.Tensor, vals: torch.Tensor, n_bins: int):
     head = torch.ones(n, dtype=torch.bool, device=idx.device)
     head[1:] = k[1:] != k[:-1]
     f, s = head, 1
+    row = (-1,) + (1,) * (vals.dim() - 1)
     while s < n:
         # (x, f)[i] <- (x, f)[i - s] (+) (x, f)[i]: a segment head keeps
         # its own partial sum; otherwise the earlier partial is added first
-        x = torch.cat([x[:s], torch.where(f[s:], x[s:], x[:-s] + x[s:])])
+        x = torch.cat([x[:s], torch.where(f[s:].view(row), x[s:],
+                                          x[:-s] + x[s:])])
         f = torch.cat([f[:s], f[s:] | f[:-s]])
         s *= 2
     last = torch.ones(n, dtype=torch.bool, device=idx.device)

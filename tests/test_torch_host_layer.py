@@ -186,6 +186,49 @@ def test_source_wavelength_spectrum_identical():
                           port_sources.halton_sequence(50, 3))
 
 
+SPECTRAL_ANALYSIS = ("spectral_power", "cie_xyz_cmf", "cie_xyz",
+                     "luminous_flux", "luminous_efficacy", "chromaticity",
+                     "srgb")
+
+
+@pytest.mark.parametrize("name", SPECTRAL_ANALYSIS)
+def test_spectral_analysis_identical(name):
+    # a white-ish bundle: a blue pump line and a broad phosphor hump
+    from lightpycl_tpu import analysis as ref_analysis
+    from lightpycl_tpu_torch import analysis as port_analysis
+
+    rng = np.random.default_rng(4)
+    wl = np.concatenate([np.full(200, 0.45), rng.normal(0.58, 0.05, 800)])
+    pw = rng.uniform(0.5, 1.5, wl.size) / wl.size
+    args = {"spectral_power": (wl, pw, np.linspace(0.38, 0.78, 9)),
+            "cie_xyz_cmf": (wl,)}.get(name, (wl, pw))
+    a = getattr(ref_analysis, name)(*args)
+    b = getattr(port_analysis, name)(*args)
+    if not isinstance(a, tuple):
+        a, b = (a,), (b,)
+    assert len(a) == len(b)
+    for x, y in zip(a, b):
+        assert np.array_equal(np.asarray(x, np.float64),
+                              np.asarray(y, np.float64)), name
+    # the corner cases: an empty bundle and a zero-power one
+    if name in ("luminous_efficacy", "chromaticity"):
+        for w_, p_ in ((wl[:0], pw[:0]), (wl, 0.0 * pw)):
+            assert (getattr(ref_analysis, name)(w_, p_)
+                    == getattr(port_analysis, name)(w_, p_))
+
+
+def test_cct_and_gauss_identical():
+    from lightpycl_tpu import analysis as ref_analysis
+    from lightpycl_tpu_torch import analysis as port_analysis
+
+    xy = np.random.default_rng(5).uniform(0.25, 0.45, (64, 2))
+    assert np.array_equal(ref_analysis.cct(xy[:, 0], xy[:, 1]),
+                          port_analysis.cct(xy[:, 0], xy[:, 1]))
+    lam = np.linspace(350.0, 800.0, 91)
+    assert np.array_equal(ref_analysis._pw_gauss(lam, 568.8, 46.9, 40.5),
+                          port_analysis._pw_gauss(lam, 568.8, 46.9, 40.5))
+
+
 def test_ray_batch_from_arrays_matches_reference():
     src = port_sources.light_source(ray_count=300, seed=2)
     o, d, p = src.sample()

@@ -93,6 +93,35 @@ SCRIPT = textwrap.dedent("""
         o, d, p = replay.rays_on_device(
             P.tracer.step.make_generator("cpu", 0), 64)
         assert o.shape == (64, 3)
+    # spectral tracing: a 64-ray shared trace (coated window) and a
+    # wavelength-batched one (dispersive prism, diffuse floor, roulette)
+    from lightpycl_tpu_torch import analysis, spectral
+    win = [oe.cube((1.0, 1.0, 0.25), material="refractive", ior=1.52,
+                   coat_ior=1.38, coat_thickness=0.1),
+           oe.disc(1.5, center=(0, 0, 2.0), material="measure", name="fwd"),
+           oe.sphere(radius=8.0, material="terminator")]
+    spectral.validate_spectral_scene(win)
+    beam64 = P.CollimatedSource(center=(0, 0, -1.0), direction=(0, 0, 1),
+                                diameter=0.5, ray_count=64, seed=3)
+    res = P.Tracer(device="cpu").trace_spectral(
+        beam64, [0.45, 0.55, 0.65], elements=win, trace_iterations=6,
+        capacity=256, method="shared")
+    assert res.rays_traced == 256 * 6, res.rays_traced
+    assert res.detector_spectrum("fwd").sum() > 0.9, res.ledger
+    glass = oe.cube((0.6, 0.6, 0.3), material="refractive", ior=1.7)
+    glass.dispersion_b = 0.02
+    floor = oe.disc(3.0, center=(0, 0, 2.0), material="diffuse",
+                    reflectivity=0.7)
+    res = CL_Tracer(device="cpu").iterative_tracer(
+        beam64, [glass, floor, oe.sphere(radius=8.0, material="measure",
+                                         name="dome")],
+        trace_iterations=5, wavelengths=[0.45, 0.55, 0.65], capacity=256,
+        roulette_threshold=1e-3)
+    assert res.rays_traced == 3 * 256 * 5, res.rays_traced
+    led = res.spectral_ledger
+    acc = sum(led[k] for k in ("measured", "absorbed", "escaped", "culled"))
+    assert abs(acc.sum() + res.final_live_power - 1.0) < 1e-5, led
+    assert 0.2 < analysis.chromaticity([0.45, 0.55], [1.0, 1.0])[1] < 0.4
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "lightpycl_tpu"))
     assert not leaked, leaked

@@ -271,11 +271,13 @@ def test_unported_entry_points_raise():
     tr = P.Tracer(device=CPU)
     with pytest.raises(NotImplementedError, match="multichip"):
         tr.trace_batched(None, 10, 5, mode="multichip")
-    with pytest.raises(NotImplementedError, match="trace_spectral"):
-        tr.trace_spectral(None, [0.5])
-    with pytest.raises(NotImplementedError, match="spectral"):
+    # spectral tracing is ported; its multi-device modes wait for A 7
+    with pytest.raises(NotImplementedError, match="A 7"):
+        tr.trace_spectral(None, [0.5], mode="multichip")
+    with pytest.raises(NotImplementedError, match="A 7"):
         CL_Tracer(device=CPU).iterative_tracer(
-            P.light_source(ray_count=4), [], wavelengths=[0.5])
+            P.light_source(ray_count=4), [], wavelengths=[0.5],
+            mode="multichip")
 
 
 def test_cuda_device_without_card_raises():
