@@ -2,8 +2,9 @@
 
 Port counterpart of lightpycl_tpu/tracer/engine.py: `TraceResult` (with the
 coherent / flux / time maps and the per-batch statistics) and `Tracer` with
-`set_elements`, `trace` in its two single-device modes, `trace_batched` in
-device mode, the cfg resolution and checks (`_resolve_ray_len`,
+`set_elements`, `trace` in its two single-device modes (with the
+reference's `iterative_tracer` alias and `profile_logdir`, a torch.profiler
+trace), `trace_batched` in device mode, the cfg resolution and checks (`_resolve_ray_len`,
 `_resolve_cull`, `_tune_splitting`, the has-flag resolution of
 `_check_polarization`, `_check_flux_map`, `_check_time_bins`), `_package`
 and `get_surface_flux`.
@@ -51,6 +52,7 @@ from lightpycl_tpu_torch.tracer import step as step_mod
 from lightpycl_tpu_torch.tracer.config import TraceConfig
 from lightpycl_tpu_torch.tracer.rays import DetectorState, Ledger, RayBatch
 from lightpycl_tpu_torch.tracer.scene import Scene, build_scene
+from lightpycl_tpu_torch.utils.profiling import trace_profile
 
 log = logging.getLogger("lightpycl_tpu_torch")
 
@@ -298,10 +300,6 @@ class Tracer:
         _refuse_multi_device(mode, mesh)
         if mode not in ("host", "device"):
             raise ValueError(f"unknown mode {mode!r}")
-        if profile_logdir is not None:
-            raise NotImplementedError(
-                "profile_logdir is not ported to lightpycl_tpu_torch yet "
-                "(ROADMAP A 8: utils/profiling)")
         cfg = self.cfg
         if trace_iterations is not None:
             cfg_overrides["trace_iterations"] = int(trace_iterations)
@@ -346,8 +344,9 @@ class Tracer:
             "trace start: %d rays (capacity %d), %d triangles, %d "
             "iterations, mode=%s, device=%s", int(rays.alive.sum()), C,
             self.num_triangles, cfg.trace_iterations, mode, self.device)
-        result = self._run(mode, rays, det, led, cfg, C, emitted,
-                           record_paths)
+        with trace_profile(profile_logdir):
+            result = self._run(mode, rays, det, led, cfg, C, emitted,
+                               record_paths)
         self.last_result = result
         log.info(
             "trace done: %.3fs, %.3g intersection tests/s, %.3g rays/s",
@@ -677,6 +676,15 @@ class Tracer:
             device=str(dev))
         self.last_result = result
         return result
+
+    # reference-shaped alias of trace (CL_Tracer.iterative_tracer adds the
+    # per-iteration path record and the spectral upgrade)
+    def iterative_tracer(self, light_source, meshes, trace_iterations=16,
+                         max_ray_len=1e3, ior_env=1.0, **kw) -> TraceResult:
+        return self.trace(
+            light_source, elements=meshes, trace_iterations=trace_iterations,
+            max_ray_len=float(max_ray_len), ior_env=float(ior_env), **kw
+        )
 
     def _check_time_bins(self, cfg: TraceConfig) -> None:
         if cfg.time_bins > 0 and not (cfg.opl_max > cfg.opl_min):
