@@ -12,17 +12,21 @@ mirror and a turbid fluorescent slab; an exact quadric lens beside its
 mesh; a gradient-index rod; Tracer.trace_spectral at the spectral benches'
 shapes: 32 wavelengths through a coated high reflector in one geometry
 pass, 16 through a dispersive prism wavelength-batched, and the white-light
-Michelson's per-wavelength field planes) and the epilogue-variant bench
+Michelson's per-wavelength field planes), the epilogue-variant bench
 (variant_bench.micro_variants / epilogue_variants at the bench's intersect
-shape), holds every kernel against its plain torch version (the nearest-hit
-kernel also on rays built to sit on its reject margin, from edge_rays.py,
-and on the rays and cull masks that the physics traces and config 4 really
-launch it with), and checks the physics (power ledger, detected power,
-statistics of the random branches, repeatability, checkpoint resume). It
-prints the kernel's resources, its times beside their bound, and the
-profiler's split of six warm traces. Any failed check raises, so the script exits
-non-zero and prints no result. Without a CUDA device it exits non-zero at
-once. It imports nothing of JAX.
+shape), BASELINE configs 1-3 against the port's float64 oracle (detected
+power within 0.1 %, the oracle on its native g++ core where there is one)
+and the 26 example scripts that need neither diff nor the multi-device
+modes (each copied with its import root swapped and run in its own process
+at its default size), holds every kernel against its plain torch version
+(the nearest-hit kernel also on rays built to sit on its reject margin,
+from edge_rays.py, and on the rays and cull masks that the physics traces
+and config 4 really launch it with), and checks the physics (power ledger,
+detected power, statistics of the random branches, repeatability,
+checkpoint resume). It prints the kernel's resources, its times beside
+their bound, and the profiler's split of six warm traces. Any failed check
+raises, so the script exits non-zero and prints no result. Without a CUDA
+device it exits non-zero at once. It imports nothing of JAX.
 
 Output: one line per phase; then the kernel table as JSON, the card's
 `nvidia-smi` name and power limit, and last
@@ -994,6 +998,232 @@ def spectral_phases(P, PI):
     return brute_s + brute_b + brute_w, cull_s + cull_b + cull_w
 
 
+# ---- 23. the float64 oracle's parity contract ---------------------------
+# BASELINE configs 1-3 in tests/test_parity_oracle.py's scene family; config
+# 1 at 100,000 rays, configs 2 and 3 at the largest counts the native
+# oracle traces in about 30 s each on the card machine's host
+ORACLE_RAYS = {1: 100_000, 2: 196_608, 3: 98_304}
+PARITY = 1e-3  # 0.1 % of the oracle's detected power
+
+
+def oracle_configs(P):
+    """(config, elements, source, iterations, capacity per ray) of the
+    parity configs (tests/test_parity_oracle.py)."""
+    oe = P.optical_elements(n_segments=32, n_radial=12)
+    return [
+        (1, [oe.parabolic_mirror(focus=0.5, diameter=2.0, reflectivity=0.92),
+             oe.hemisphere(radius=15.0, name="dome")],
+         P.light_source(center=(0, 0, 0.5), direction=(0, 0, -1), power=1.0,
+                        ray_count=ORACLE_RAYS[1], seed=21), 4, 1),
+        (2, [oe.plano_convex_lens(r=0.5, aperture=0.6, thickness=0.1,
+                                  ior=1.5),
+             oe.disc(radius=1.0, center=(0, 0, 1.1), material="measure"),
+             oe.sphere(radius=8.0, material="terminator", name="enclosure")],
+         P.CollimatedSource(center=(0, 0, -0.5), direction=(0, 0, 1),
+                            diameter=0.3, ray_count=ORACLE_RAYS[2],
+                            power=1.0, seed=22), 5, 8),
+        (3, [oe.biconvex_lens(1.0, 0.8, 0.2, ior=1.5),
+             oe.biconvex_lens(1.5, 0.8, 0.15, ior=1.7).translate((0, 0, 0.5)),
+             oe.sphere(radius=6.0, material="measure", name="enclosure")],
+         P.CollimatedSource(center=(0, 0, -0.5), direction=(0, 0, 1),
+                            diameter=0.5, ray_count=ORACLE_RAYS[3],
+                            power=1.0, seed=23), 5, 32),
+    ]
+
+
+def oracle_phases(P, PI):
+    """Phase 23: configs 1-3 traced on the card (device mode) and by the
+    port's float64 oracle (lightpycl_tpu_torch.tracer.oracle) on the same
+    rays; detected power within 0.1 %, as tests/test_parity_oracle.py
+    holds the reference. Returns the (brute, culled) kernel launches of
+    the card's traces."""
+    from lightpycl_tpu_torch import native
+    from lightpycl_tpu_torch.tracer.oracle import trace_oracle
+
+    path = native.backend()
+    line("23 oracle", backend=path, library=(native.library_path().name
+                                              if path == "native" else None))
+    brute = cull = 0
+    for k, els, src, iters, per_ray in oracle_configs(P):
+        o, d, p = src.sample()
+        n = len(p)
+
+        def card():
+            return P.Tracer().trace(
+                None, els, trace_iterations=iters, mode="device",
+                rays=P.RayBatch.from_arrays(o, d, p, capacity=per_ray * n,
+                                            device="cuda"))
+
+        card()  # first use of this scene's shapes
+        res, b, c = counted(PI, card)
+        brute, cull = brute + b, cull + c
+        t0 = time.perf_counter()
+        ora = trace_oracle(els, o, d, p, trace_iterations=iters)
+        oracle_s = time.perf_counter() - t0
+        led = res.ledger
+        rel = abs(led["measured"] - ora["measured"]) / ora["measured"]
+        extra = {}
+        if k == 1:
+            extra = dict(absorbed=led["absorbed"],
+                         oracle_absorbed=ora["absorbed"])
+            check(abs(led["absorbed"] - ora["absorbed"])
+                  <= max(PARITY * ora["absorbed"], 1e-6),
+                  "config 1 absorbed within 0.1 % of the oracle")
+        if k == 2:
+            extra = dict(escaped=led["escaped"],
+                         oracle_escaped=ora["escaped"])
+            check(abs(led["escaped"] - ora["escaped"])
+                  <= max(5e-3 * ora["escaped"], 1e-5),
+                  "config 2 escaped within 0.5 % of the oracle")
+        if k == 3:
+            extra = dict(per_detector=float(res.per_detector[0]))
+            check(abs(res.per_detector[0] - ora["measured"])
+                  <= PARITY * ora["measured"],
+                  "config 3 per-detector power within 0.1 % of the oracle")
+        line(f"23 oracle config{k}", rays=n, capacity=per_ray * n,
+             triangles=sum(e.num_triangles for e in els), iterations=iters,
+             measured=led["measured"], oracle_measured=ora["measured"],
+             rel_err=f"{rel:.3e}", conservation_err=(
+                 res.power_conservation_error()),
+             trace_wall_s=res.wall_time, oracle=path,
+             oracle_s=f"{oracle_s:.3f}", launches=b, cull_launches=c,
+             **extra)
+        check(rel <= PARITY, f"config {k} detected power within 0.1 % of "
+              "the float64 oracle")
+        check(res.power_conservation_error() <= 1e-5,
+              f"config {k} ledger closes")
+    return brute, cull
+
+
+# ---- 24. the example scripts through the port -----------------------------
+# the five that need a module the port lacks: diff (ROADMAP A 6) or
+# parallel (A 7)
+EXAMPLES_NOT_PORTED = {"example_bestform.py": "diff",
+                       "example_coating_design.py": "diff",
+                       "example_lens_design.py": "diff",
+                       "example_tolerancing.py": "diff",
+                       "example_multichip.py": "parallel"}
+# Two scripts call jax themselves, for an analytic cross-check of a
+# physics function on a handful of numbers; the card's machine has no jax,
+# so their copies also get these lines in torch (the same functions of the
+# port, on the same numbers)
+JAX_LINES = {
+    "example_newtonian.py": [
+        ("import jax\nimport jax.numpy as jnp\n", "import torch\n"),
+        ("arr = lambda x: jnp.atleast_1d(jnp.asarray(x, jnp.float32))",
+         "arr = lambda x: torch.atleast_1d(torch.as_tensor(x, "
+         "dtype=torch.float32))"),
+        ("metal_rs_rp = jax.jit(metal_rs_rp)\n", ""),
+        ("jnp.abs(", "torch.abs(")],
+    "example_spectral_coating.py": [
+        ("import jax.numpy as jnp\n", "import torch\n"),
+        ("arr = jnp.asarray", "arr = lambda x: torch.as_tensor(x, "
+         "dtype=torch.float32)"),
+        ("import jax as _jax\n\n_ml = _jax.jit(multilayer_reflectance)",
+         "_ml = multilayer_reflectance")],
+}
+EXAMPLE_WORKERS = 4
+EXAMPLE_TIMEOUT_S = 300
+# runs one copied script in its own interpreter, then writes the kernel
+# launches it made (the wrapper's counts start at 0 in a new process)
+EXAMPLE_RUNNER = (
+    "import json, runpy, sys\n"
+    "from lightpycl_tpu_torch.ops import intersect as PI\n"
+    "try:\n"
+    "    runpy.run_path(sys.argv[1], run_name='__main__')\n"
+    "finally:\n"
+    "    with open(sys.argv[2], 'w') as f:\n"
+    "        json.dump([PI.nearest_hit_cuda.launches,\n"
+    "                   PI.nearest_hit_cuda.cull_launches], f)\n")
+
+
+def example_copy(src: str, name: str):
+    """The script with its import root swapped (and its own jax lines in
+    torch where JAX_LINES lists them); returns (text, lines translated)."""
+    text = re.sub(r"\blightpycl_tpu\b", "lightpycl_tpu_torch", src)
+    for old, new in JAX_LINES.get(name, ()):
+        check(old in text, f"{name}: its jax line {old!r} is where expected")
+        text = text.replace(old, new)
+    check(not re.search(r"^(import|from) jax\b", text, re.M),
+          f"{name}: no top-level jax import left")
+    return text, len(JAX_LINES.get(name, ()))
+
+
+def example_phases(P, PI):
+    """Phase 24: every example script that needs neither diff nor parallel,
+    copied with its import root swapped, each in its own python3 process
+    on the card at its own default size (LPCL_FORCE_CPU unset), four at a
+    time. Returns the (brute, culled) kernel launches of the scripts."""
+    import glob
+    import os
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    names = sorted(os.path.basename(f) for f in glob.glob(
+        os.path.join(repo, "examples", "example_*.py")))
+    names = [n for n in names if n not in EXAMPLES_NOT_PORTED]
+    check(len(names) == 26, f"26 example scripts to run, found {len(names)}")
+    tmpdir = tempfile.TemporaryDirectory(prefix="lpcl_examples_")
+    tmp = tmpdir.name
+    env = dict(os.environ)
+    env.pop("LPCL_FORCE_CPU", None)
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    # example_large_mesh checkpoints to /tmp by default: keep it here
+    env["CKPT"] = os.path.join(tmp, "large_mesh_ckpt.npz")
+
+    def run_one(name):
+        with open(os.path.join(repo, "examples", name)) as f:
+            src = f.read()
+        text, translated = example_copy(src, name)
+        path = os.path.join(tmp, name)
+        with open(path, "w") as f:
+            f.write(text)
+        counts = path + ".launches.json"
+        sizes = dict(re.findall(
+            r'environ\.get\("([A-Z_]+)", ([0-9_ <]+)\)', src))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", EXAMPLE_RUNNER, path, counts], cwd=tmp,
+            env=env, capture_output=True, text=True,
+            timeout=EXAMPLE_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        try:
+            with open(counts) as f:
+                launches, cull_launches = json.load(f)
+        except OSError:
+            launches = cull_launches = 0
+        out = proc.stdout.strip().splitlines()
+        err = proc.stderr.strip().splitlines()
+        return dict(name=name, wall=wall, rc=proc.returncode,
+                    last=(out[-1] if out else ""), err=err[-12:],
+                    sizes=sizes, translated=translated,
+                    brute=launches - cull_launches, cull=cull_launches)
+
+    t0 = time.perf_counter()
+    with tmpdir, ThreadPoolExecutor(EXAMPLE_WORKERS) as pool:
+        rows = list(pool.map(run_one, names))
+    phase_s = time.perf_counter() - t0
+    brute = cull = 0
+    for r in rows:
+        brute, cull = brute + r["brute"], cull + r["cull"]
+        size = ",".join(f"{k}={v}" for k, v in r["sizes"].items()) or "fixed"
+        line(f"24 example {r['name']}", wall_s=f"{r['wall']:.2f}",
+             rc=r["rc"], size=f"default:{size}", launches=r["brute"],
+             cull_launches=r["cull"], jax_lines_in_torch=r["translated"],
+             last=repr(r["last"][:160]))
+        if r["rc"] != 0:
+            for e in r["err"]:
+                print(f"[24 example {r['name']} stderr] {e}", flush=True)
+    line("24 examples", scripts=len(rows), workers=EXAMPLE_WORKERS,
+         phase_s=f"{phase_s:.1f}", launches=brute, cull_launches=cull,
+         not_run=",".join(f"{n}({m})"
+                          for n, m in sorted(EXAMPLES_NOT_PORTED.items())))
+    failed = [r["name"] for r in rows if r["rc"] != 0]
+    check(not failed, f"example scripts exited non-zero: {failed}")
+    check(all(r["brute"] + r["cull"] > 0 for r in rows),
+          "every example script launched the kernel")
+    return brute, cull
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1521,13 +1751,18 @@ def main():
              "plain_rays": CMP_RAYS, "triangles": v_tris})
     del t_b1, i_b1, vo, vd, v_inputs
 
+    oracle_brute, oracle_cull = oracle_phases(P, PI)
+    ex_brute, ex_cull = example_phases(P, PI)
+
     table = {"kernels": [
         {"name": "nearest_hit (B1, brute)", "route": "cuda",
          "source": KERNEL_SRC, "replaces": f"{TPU_KERNEL}:154",
          "launches": (launches - cull_launches + launches4 - cull_launches4
-                      + new_brute + spec_brute),
+                      + new_brute + spec_brute + oracle_brute + ex_brute),
          "launches_trace_batched": launches4 - cull_launches4,
          "launches_physics": new_brute, "launches_spectral": spec_brute,
+         "launches_oracle_parity": oracle_brute,
+         "launches_examples": ex_brute,
          "max_abs_err": b1_err,
          "ms": b1_ms, "plain_ms": b1_plain_ms, "bound_ms": b1_bound_ms,
          "bound_by": b1_bound_by, "share_of_bound": b1_bound_ms / b1_ms,
@@ -1535,9 +1770,12 @@ def main():
          "rays": BENCH_RAYS, "plain_rays": CMP_RAYS, "triangles": n_tris},
         {"name": "nearest_hit (B2, cull)", "route": "cuda",
          "source": KERNEL_SRC, "replaces": f"{TPU_KERNEL}:185",
-         "launches": cull_launches + cull_launches4 + new_cull + spec_cull,
+         "launches": (cull_launches + cull_launches4 + new_cull + spec_cull
+                      + oracle_cull + ex_cull),
          "launches_trace_batched": cull_launches4,
          "launches_physics": new_cull, "launches_spectral": spec_cull,
+         "launches_oracle_parity": oracle_cull,
+         "launches_examples": ex_cull,
          "max_abs_err": b2_err,
          "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound_ms,
          "bound_by": b2_bound_by, "share_of_bound": b2_bound_ms / b2_ms,

@@ -15,8 +15,11 @@ diffuse and rough surfaces, turbid and fluorescent media, GRIN, path
 tracking), the exact quadric surfaces, the optional detector maps and
 roulette, and the batched mega-ray tracer `Tracer.trace_batched` with the
 sources' device samplers, checkpoint / resume and ray-file replay
-(`lightpycl_tpu_torch.io`), and spectral tracing (`Tracer.trace_spectral`,
-`lightpycl_tpu_torch.spectral`); unported entry points (diff,
+(`lightpycl_tpu_torch.io`), spectral tracing (`Tracer.trace_spectral`,
+`lightpycl_tpu_torch.spectral`), and the host side: the float64 parity
+oracle (`tracer.oracle`, `native`), `analysis`, `paraxial`, every `io`
+format, `utils` and the reference-named modules (`iterative_tracer`,
+`light_source`, `geo_optical_elements`); unported entry points (diff,
 multi-device) raise NotImplementedError (ROADMAP.md).
 """
 

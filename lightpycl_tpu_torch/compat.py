@@ -1,13 +1,11 @@
 """Reference-shaped API facade.
 
 Port counterpart of lightpycl_tpu/compat.py: `CL_Tracer` with
-`iterative_tracer`, `get_measured_rays`, `get_detector_histogram`,
-`get_power_ledger` and `get_trace_performance`. No getter of the reference
-is fed only by the surface and volume physics (Stokes fractions and path
-signatures come back in TraceResult.measured_stokes / measured_path). Its
-plotting, directivity, beam statistics and DXF export need the analysis / io
-layers and are not ported yet (ROADMAP A 8). `iterative_tracer(wavelengths=)`
-is the one-keyword spectral upgrade of a script (Tracer.trace_spectral).
+`iterative_tracer`, the getters (`get_measured_rays`,
+`get_detector_histogram`, `get_power_ledger`, `get_measured_directivity`,
+`get_beam_statistics`, `get_trace_performance`), the plots and the DXF
+export of the traced scene. `iterative_tracer(wavelengths=)` is the
+one-keyword spectral upgrade of a script (Tracer.trace_spectral).
 
     from lightpycl_tpu_torch.compat import (CL_Tracer, optical_elements,
                                             light_source)
@@ -27,10 +25,12 @@ from typing import Optional
 
 import torch
 
+from lightpycl_tpu_torch import analysis
 from lightpycl_tpu_torch.geometry.primitives import (OpticalElements,
                                                      optical_elements)
 from lightpycl_tpu_torch.sources import (CollimatedSource, LightSource,
                                          light_source)
+from lightpycl_tpu_torch.io.dxf import save_traced_scene as _save_dxf
 from lightpycl_tpu_torch.tracer.config import TraceConfig
 from lightpycl_tpu_torch.tracer.engine import Tracer, TraceResult
 
@@ -96,6 +96,36 @@ class CL_Tracer(Tracer):
             max_ray_len=float(max_ray_len), ior_env=float(ior_env),
             mode=mode, record_paths=record_paths, **kw,
         )
+
+    # -- analysis / plotting ----------------------------------------------
+
+    def get_measured_directivity(self, n_polar: int = 45):
+        r = self._require_result()
+        return analysis.polar_directivity(r.measured_pos, r.measured_power,
+                                          n_polar)
+
+    def plot_measured_directivity(self, n_polar: int = 45, **kw):
+        r = self._require_result()
+        return analysis.plot_measured_directivity(
+            r.measured_pos, r.measured_power, n_polar, **kw)
+
+    def plot_measured_directivity_3d(self, **kw):
+        r = self._require_result()
+        return analysis.plot_directivity_3d(r.measured_pos, r.measured_power,
+                                            **kw)
+
+    def plot_elements_and_rays(self, **kw):
+        r = self._require_result()
+        return analysis.plot_elements_and_rays(self.elements, r.segments, **kw)
+
+    def get_beam_statistics(self) -> dict:
+        r = self._require_result()
+        return analysis.beam_statistics(r.measured_dir, r.measured_power)
+
+    def save_traced_scene(self, path: str, **kw) -> str:
+        """Export the scene and the traced ray paths to DXF."""
+        r = self._require_result()
+        return _save_dxf(path, self.elements, r.segments, **kw)
 
     def get_trace_performance(self) -> dict:
         r = self._require_result()

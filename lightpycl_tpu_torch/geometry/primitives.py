@@ -1,9 +1,8 @@
 """Parametric tessellated optical-element primitives.
 
 Port counterpart of lightpycl_tpu/geometry/primitives.py: a jax-free copy
-(tests/test_torch_host_layer.py pins its vertices bit for bit). The only
-change is the Zernike sag, whose polynomial is copied from
-lightpycl_tpu/analysis.py (noll_to_nm, zernike_value) instead of imported.
+(tests/test_torch_host_layer.py pins its vertices bit for bit); only the
+import root differs.
 
 Reference parity: the `optical_elements` factory of geo_optical_elements.py
 (SURVEY.md §3 "Primitive mesh factory" [recalled]): parabolic mirror,
@@ -536,43 +535,11 @@ class OpticalElements:
                          **kw).translate(center)
 
 
-def noll_to_nm(j: int):
-    """Noll index j (1-based) -> (n, m) Zernike orders (copy of
-    lightpycl_tpu/analysis.py::noll_to_nm)."""
-    if j < 1:
-        raise ValueError("Noll index starts at 1")
-    n = 0
-    j1 = j - 1
-    while j1 > n:
-        n += 1
-        j1 -= n
-    m = (-1) ** j * ((n % 2) + 2 * ((j1 + ((n + 1) % 2)) // 2))
-    return n, m
-
-
-def zernike_value(j: int, rho, theta):
-    """Noll-normalized Zernike polynomial Z_j on the unit disc (copy of
-    lightpycl_tpu/analysis.py::zernike_value)."""
-    n, m = noll_to_nm(j)
-    am = abs(m)
-    rho = np.asarray(rho, np.float64)
-    R = np.zeros_like(rho)
-    from math import factorial
-
-    for k in range((n - am) // 2 + 1):
-        coef = ((-1) ** k * factorial(n - k)
-                / (factorial(k) * factorial((n + am) // 2 - k)
-                   * factorial((n - am) // 2 - k)))
-        R = R + coef * rho ** (n - 2 * k)
-    if m == 0:
-        return np.sqrt(n + 1.0) * R
-    ang = np.cos(am * theta) if m > 0 else np.sin(am * theta)
-    return np.sqrt(2.0 * (n + 1.0)) * R * ang
-
-
 def _zernike_sag_fn(coeffs: dict, a: float):
     """sag(x, y) = sum_j c_j Z_j(rho/a, theta) as a vectorized callable
     (Noll indices/normalization from analysis.zernike_value)."""
+    from lightpycl_tpu_torch.analysis import zernike_value
+
     items = sorted((int(j), float(c)) for j, c in coeffs.items())
     if not items or items[0][0] < 1:
         raise ValueError("coeffs: {noll_index (>= 1): coefficient}")

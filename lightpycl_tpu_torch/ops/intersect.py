@@ -147,23 +147,26 @@ def nearest_hit_torch(o, d, wu, wv, ww, eps, eps_b, t_max, mask=None,
         mask = mask.cpu().numpy().view(np.uint32).reshape(-1, _mask_words(T))
     best = torch.full((C,), -_INF, dtype=torch.float32, device=o.device)
     best_i = torch.full((C,), -1, dtype=torch.int32, device=o.device)
+    # contiguous columns (ray components, triangle rows): the same
+    # operations on the same values, without strided reads
+    oc, dc = o.t().contiguous()[:, :, None], d.t().contiguous()[:, :, None]
+    wt = [w.t().contiguous() for w in (wu, wv, ww)]
     for r0 in range(0, C, ray_block):
-        ob, db = o[r0:r0 + ray_block], d[r0:r0 + ray_block]
-        ox, oy, oz = ob[:, 0:1], ob[:, 1:2], ob[:, 2:3]
-        dx, dy, dz = db[:, 0:1], db[:, 1:2], db[:, 2:3]
+        ox, oy, oz = oc[:, r0:r0 + ray_block]
+        dx, dy, dz = dc[:, r0:r0 + ray_block]
         bq, bi = best[r0:r0 + ray_block], best_i[r0:r0 + ray_block]
         for k0 in range(0, T, tri_chunk):
             if mask is not None:
                 j = k0 // TRI_TILE
                 if not (mask[r0 // RAY_BLOCK, j // 32] >> (j % 32)) & 1:
                     continue
-            a, b, c = (w[k0:k0 + tri_chunk] for w in (wu, wv, ww))
-            OU = ox * a[:, 0] + oy * a[:, 1] + oz * a[:, 2] + a[:, 3]
-            OV = ox * b[:, 0] + oy * b[:, 1] + oz * b[:, 2] + b[:, 3]
-            OW = ox * c[:, 0] + oy * c[:, 1] + oz * c[:, 2] + c[:, 3]
-            DU = dx * a[:, 0] + dy * a[:, 1] + dz * a[:, 2]
-            DV = dx * b[:, 0] + dy * b[:, 1] + dz * b[:, 2]
-            DW = dx * c[:, 0] + dy * c[:, 1] + dz * c[:, 2]
+            a, b, c = (w[:, k0:k0 + tri_chunk] for w in wt)
+            OU = ox * a[0] + oy * a[1] + oz * a[2] + a[3]
+            OV = ox * b[0] + oy * b[1] + oz * b[2] + b[3]
+            OW = ox * c[0] + oy * c[1] + oz * c[2] + c[3]
+            DU = dx * a[0] + dy * a[1] + dz * a[2]
+            DV = dx * b[0] + dy * b[1] + dz * b[2]
+            DW = dx * c[0] + dy * c[1] + dz * c[2]
             q = OW / DW
             u = OU - q * DU
             v = OV - q * DV

@@ -4,10 +4,10 @@ Port counterpart of lightpycl_tpu/tracer/engine.py: `TraceResult` (with the
 coherent / flux / time maps and the per-batch statistics) and `Tracer` with
 `set_elements`, `trace` in its two single-device modes (with the
 reference's `iterative_tracer` alias and `profile_logdir`, a torch.profiler
-trace), `trace_batched` in device mode, the cfg resolution and checks (`_resolve_ray_len`,
-`_resolve_cull`, `_tune_splitting`, the has-flag resolution of
-`_check_polarization`, `_check_flux_map`, `_check_time_bins`), `_package`
-and `get_surface_flux`.
+trace), `trace_batched` in device mode, the cfg resolution and checks
+(`_resolve_ray_len`, `_resolve_cull`, `_tune_splitting`, the has-flag
+resolution of `_check_polarization`, `_check_flux_map`,
+`_check_time_bins`), `_package` and `get_surface_flux`.
 
   * 'device': the multi-bounce loop runs on the device with one host sync
     per bounce (the early-exit test); detector histogram and ledger come

@@ -122,6 +122,56 @@ SCRIPT = textwrap.dedent("""
     acc = sum(led[k] for k in ("measured", "absorbed", "escaped", "culled"))
     assert abs(acc.sum() + res.final_live_power - 1.0) < 1e-5, led
     assert 0.2 < analysis.chromaticity([0.45, 0.55], [1.0, 1.0])[1] < 0.4
+    # the float64 oracle (native core and numpy path), utils, paraxial,
+    # every file format, the full analysis and the reference-named modules
+    from lightpycl_tpu_torch import native, paraxial, utils
+    from lightpycl_tpu_torch import io as pio
+    from lightpycl_tpu_torch.io import dxf, ies, obj, scene, seq, stl, zmx
+    from lightpycl_tpu_torch.tracer.oracle import trace_oracle
+    from lightpycl_tpu_torch.iterative_tracer import CL_Tracer as Tr
+    from lightpycl_tpu_torch.light_source import light_source as ls_f
+    from lightpycl_tpu_torch.geo_optical_elements import optical_elements
+    o, d, p = src.sample()
+    ora = trace_oracle(els, o, d, p, trace_iterations=3)
+    assert abs(ora["measured"] - 0.9) < 1e-3, ora["measured"]
+    lib, native._lib, native._tried = native._lib, None, True
+    assert native.backend() == "numpy"
+    assert trace_oracle(els, o, d, p, trace_iterations=3)["measured"] == (
+        ora["measured"])
+    native._lib = lib
+    utils.setup_logging()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = Tr("", "", device="cpu").iterative_tracer(
+            ls_f(ray_count=64), [optical_elements(8, 4).hemisphere(2.0)],
+            trace_iterations=2, profile_logdir=tmp)
+        assert os.listdir(tmp), "no profiler trace written"
+        for save, load, name in ((stl.save_stl, stl.load_stl, "a.stl"),
+                                 (obj.save_ply, obj.load_ply, "a.ply")):
+            save(os.path.join(tmp, name), els[0])
+            assert load(os.path.join(tmp, name)).num_triangles == (
+                els[0].num_triangles)
+        obj.save_obj(os.path.join(tmp, "a.obj"), els)
+        scene.save_scene(os.path.join(tmp, "a.npz"), els)
+        assert len(scene.load_scene(os.path.join(tmp, "a.npz"))) == 2
+        dxf.save_traced_scene(os.path.join(tmp, "a.dxf"), els)
+        ies.save_ies(os.path.join(tmp, "a.ies"), res.measured_dir,
+                     res.measured_power)
+        assert ies.ies_source(os.path.join(tmp, "a.ies"),
+                              ray_count=16).sample()[0].shape == (16, 3)
+        with open(os.path.join(tmp, "s.seq"), "w") as f:
+            f.write("LEN\\nWL 587.6\\nSO 0 INF\\nS 30 5 NBK7_SCHOTT\\n"
+                    "  CIR 8\\nS -30 28\\n  CIR 8\\nSI 0 0\\n  CIR 3\\n")
+        presc = seq.load_seq(os.path.join(tmp, "s.seq"))
+        zmx.save_zmx(os.path.join(tmp, "s.zmx"), presc)
+        props = pio.zmx_paraxial(pio.load_zmx(os.path.join(tmp, "s.zmx")))
+        assert abs(props["efl"] - paraxial.system_properties(
+            paraxial.thick_lens(30, -30, 5, presc.surfaces[1].nd
+                                or 1.5168))["efl"]) < 1.0
+        lens_els, info = seq.seq_to_scene(presc, n_segments=16, n_radial=6)
+        assert info["z_image"] > 0
+    assert analysis.best_focus(res.measured_pos, res.measured_dir)[1] >= 0
+    assert analysis.zernike_fit(res.measured_pos[:, :2],
+                                res.measured_opl)["coeffs"].shape == (11,)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "lightpycl_tpu"))
     assert not leaked, leaked

@@ -187,3 +187,30 @@ def assert_conserves(sh, rays, tol=1e-5):
                 + sh.child_power.sum() + sh.policy_dropped)
     assert abs(out - live) < tol, (out, live)
     return live
+
+
+def assert_same(a, b, where="value"):
+    """Exact equality of two results of the same numpy code, recursing into
+    dicts, lists, tuples and dataclasses: arrays by dtype, shape and bits
+    (NaN == NaN), floats and everything else by ==."""
+    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+        assert type(a).__name__ == type(b).__name__, where
+        for f in dataclasses.fields(a):
+            assert_same(getattr(a, f.name), getattr(b, f.name),
+                        f"{where}.{f.name}")
+    elif isinstance(a, dict):
+        assert isinstance(b, dict) and list(a) == list(b), where
+        for k in a:
+            assert_same(a[k], b[k], f"{where}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        assert type(a) is type(b) and len(a) == len(b), where
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_same(x, y, f"{where}[{i}]")
+    elif isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        a, b = np.asarray(a), np.asarray(b)
+        assert a.dtype == b.dtype and a.shape == b.shape, where
+        assert np.array_equal(a, b, equal_nan=a.dtype.kind in "fc"), where
+    elif isinstance(a, float) and np.isnan(a):
+        assert isinstance(b, float) and np.isnan(b), where
+    else:
+        assert type(a) is type(b) and a == b, (where, a, b)
