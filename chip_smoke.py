@@ -163,18 +163,20 @@ class LaunchTap:
 def hold_to_plain(PI, phase, bounce, launch, n_rays=CMP_RAYS):
     """One launch of a main path, as a LaunchTap kept it, made again: the
     kernel with the launch's own cull mask on `n_rays` of its rays (whole
-    ray blocks spread evenly over the launch) against the plain version
-    without a mask, (t, tri) of every live ray bitwise. The mask never
-    changes a live ray's result, so the plain version's culled path (a
-    Python loop over (ray block, tile) pairs, minutes on 2,056 tiles) is
-    not needed. Dead slots are left out: the mask is built from the live
-    rays only."""
+    ray blocks that hold a live ray, spread evenly over the launch) against
+    the plain version without a mask, (t, tri) of every live ray bitwise.
+    The mask never changes a live ray's result, so the plain version's
+    culled path (a Python loop over (ray block, tile) pairs, minutes on
+    2,056 tiles) is not needed. Dead slots are left out: the mask is built
+    from the live rays only."""
     scene, o, d, cfg, alive, mask = launch
     RB, C, T = PI.RAY_BLOCK, o.shape[0], scene.wu.shape[0]
     n_rb = C // RB
     check(n_rb > 0, f"phase {phase}: the launch holds a whole ray block")
-    n_sel = min(n_rays // RB, n_rb)
-    sel = torch.arange(n_sel, device=o.device) * (n_rb // n_sel)
+    cand = torch.nonzero(alive[:n_rb * RB].view(n_rb, RB).any(1))[:, 0]
+    check(len(cand) > 0, f"phase {phase} launch {bounce}: live rays")
+    n_sel = min(n_rays // RB, len(cand))
+    sel = cand[torch.arange(n_sel, device=o.device) * (len(cand) // n_sel)]
 
     def blocks(x):
         x = x[:n_rb * RB].reshape(n_rb, RB, *x.shape[1:])[sel]
@@ -197,7 +199,6 @@ def hold_to_plain(PI, phase, bounce, launch, n_rays=CMP_RAYS):
          triangles=T, culled=mk is not None, pairs_kept=f"{kept:.5f}",
          live=int(live.sum()), hits=int(((i_k >= 0) & live).sum()),
          tri_mismatch=tri_mismatch, t_bit_mismatch=t_bit_mismatch)
-    check(int(live.sum()) > 0, f"phase {phase} launch {bounce}: live rays")
     check(tri_mismatch == 0 and t_bit_mismatch == 0,
           f"phase {phase} launch {bounce}: the kernel on the main path's own "
           "rays and mask bitwise equal to the plain version")
@@ -999,52 +1000,30 @@ def spectral_phases(P, PI):
 
 
 # ---- 23. the float64 oracle's parity contract ---------------------------
-# BASELINE configs 1-3 in tests/test_parity_oracle.py's scene family; config
-# 1 at 100,000 rays, configs 2 and 3 at the largest counts the native
-# oracle traces in about 30 s each on the card machine's host
+# BASELINE configs 1-3 (lightpycl_tpu_torch.tracer.parity); config 1 at
+# 100,000 rays, configs 2 and 3 at the largest counts the native oracle
+# traces in about 30 s each on the card machine's host
 ORACLE_RAYS = {1: 100_000, 2: 196_608, 3: 98_304}
-PARITY = 1e-3  # 0.1 % of the oracle's detected power
-
-
-def oracle_configs(P):
-    """(config, elements, source, iterations, capacity per ray) of the
-    parity configs (tests/test_parity_oracle.py)."""
-    oe = P.optical_elements(n_segments=32, n_radial=12)
-    return [
-        (1, [oe.parabolic_mirror(focus=0.5, diameter=2.0, reflectivity=0.92),
-             oe.hemisphere(radius=15.0, name="dome")],
-         P.light_source(center=(0, 0, 0.5), direction=(0, 0, -1), power=1.0,
-                        ray_count=ORACLE_RAYS[1], seed=21), 4, 1),
-        (2, [oe.plano_convex_lens(r=0.5, aperture=0.6, thickness=0.1,
-                                  ior=1.5),
-             oe.disc(radius=1.0, center=(0, 0, 1.1), material="measure"),
-             oe.sphere(radius=8.0, material="terminator", name="enclosure")],
-         P.CollimatedSource(center=(0, 0, -0.5), direction=(0, 0, 1),
-                            diameter=0.3, ray_count=ORACLE_RAYS[2],
-                            power=1.0, seed=22), 5, 8),
-        (3, [oe.biconvex_lens(1.0, 0.8, 0.2, ior=1.5),
-             oe.biconvex_lens(1.5, 0.8, 0.15, ior=1.7).translate((0, 0, 0.5)),
-             oe.sphere(radius=6.0, material="measure", name="enclosure")],
-         P.CollimatedSource(center=(0, 0, -0.5), direction=(0, 0, 1),
-                            diameter=0.5, ray_count=ORACLE_RAYS[3],
-                            power=1.0, seed=23), 5, 32),
-    ]
 
 
 def oracle_phases(P, PI):
     """Phase 23: configs 1-3 traced on the card (device mode) and by the
     port's float64 oracle (lightpycl_tpu_torch.tracer.oracle) on the same
     rays; detected power within 0.1 %, as tests/test_parity_oracle.py
-    holds the reference. Returns the (brute, culled) kernel launches of
-    the card's traces."""
+    holds the reference. The first two launches of each card trace are
+    tapped and held to the plain version. Returns the (brute, culled)
+    kernel launches of the card's traces."""
     from lightpycl_tpu_torch import native
     from lightpycl_tpu_torch.tracer.oracle import trace_oracle
+    from lightpycl_tpu_torch.tracer.parity import (CONFIGS, PARITY,
+                                                   parity_config)
 
     path = native.backend()
     line("23 oracle", backend=path, library=(native.library_path().name
                                               if path == "native" else None))
     brute = cull = 0
-    for k, els, src, iters, per_ray in oracle_configs(P):
+    for k in CONFIGS:
+        els, src, iters, per_ray = parity_config(k, ORACLE_RAYS[k])
         o, d, p = src.sample()
         n = len(p)
 
@@ -1055,7 +1034,8 @@ def oracle_phases(P, PI):
                                             device="cuda"))
 
         card()  # first use of this scene's shapes
-        res, b, c = counted(PI, card)
+        with LaunchTap(PI, (0, 1)) as tap:
+            res, b, c = counted(PI, card)
         brute, cull = brute + b, cull + c
         t0 = time.perf_counter()
         ora = trace_oracle(els, o, d, p, trace_iterations=iters)
@@ -1088,6 +1068,8 @@ def oracle_phases(P, PI):
              trace_wall_s=res.wall_time, oracle=path,
              oracle_s=f"{oracle_s:.3f}", launches=b, cull_launches=c,
              **extra)
+        for bounce, launch in sorted(tap.kept.items()):
+            hold_to_plain(PI, f"23 config{k}", bounce, launch)
         check(rel <= PARITY, f"config {k} detected power within 0.1 % of "
               "the float64 oracle")
         check(res.power_conservation_error() <= 1e-5,

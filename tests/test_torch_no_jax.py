@@ -128,12 +128,14 @@ SCRIPT = textwrap.dedent("""
     from lightpycl_tpu_torch import io as pio
     from lightpycl_tpu_torch.io import dxf, ies, obj, scene, seq, stl, zmx
     from lightpycl_tpu_torch.tracer.oracle import trace_oracle
+    from lightpycl_tpu_torch.tracer.parity import CONFIGS, parity_config
     from lightpycl_tpu_torch.iterative_tracer import CL_Tracer as Tr
     from lightpycl_tpu_torch.light_source import light_source as ls_f
     from lightpycl_tpu_torch.geo_optical_elements import optical_elements
     o, d, p = src.sample()
     ora = trace_oracle(els, o, d, p, trace_iterations=3)
     assert abs(ora["measured"] - 0.9) < 1e-3, ora["measured"]
+    assert [len(parity_config(k, 8)[0]) for k in CONFIGS] == [2, 3, 3]
     lib, native._lib, native._tried = native._lib, None, True
     assert native.backend() == "numpy"
     assert trace_oracle(els, o, d, p, trace_iterations=3)["measured"] == (

@@ -23,11 +23,10 @@ import lightpycl_tpu_torch as P
 import lightpycl_tpu_torch.native as port_native
 from lightpycl_tpu.tracer import oracle as ref_oracle
 from lightpycl_tpu_torch.tracer import oracle as port_oracle
+from lightpycl_tpu_torch.tracer.parity import PARITY, parity_config
 from torch_port_common import assert_same
 
 torch.set_num_threads(1)
-
-PARITY = 1e-3  # 0.1 %
 
 
 @contextlib.contextmanager
@@ -193,36 +192,27 @@ def run_both(els, src, iters, capacity=None, power_cutoff=0.0):
     return res, ora
 
 
+def run_config(k, ray_count):
+    els, src, iters, per_ray = parity_config(k, ray_count)
+    return run_both(els, src, iters, capacity=per_ray * ray_count)
+
+
 def test_config1_parabolic_collimator():
-    els = [oe.parabolic_mirror(focus=0.5, diameter=2.0, reflectivity=0.92),
-           oe.hemisphere(radius=15.0, name="dome")]
-    src = P.light_source(center=(0, 0, 0.5), direction=(0, 0, -1),
-                         power=1.0, ray_count=3000, seed=21)
-    res, ora = run_both(els, src, iters=4)
+    res, ora = run_config(1, 3000)
     assert res.ledger["measured"] == pytest.approx(ora["measured"], rel=PARITY)
     assert res.ledger["absorbed"] == pytest.approx(ora["absorbed"],
                                                    rel=PARITY, abs=1e-6)
 
 
 def test_config2_plano_convex():
-    els = [oe.plano_convex_lens(r=0.5, aperture=0.6, thickness=0.1, ior=1.5),
-           oe.disc(radius=1.0, center=(0, 0, 1.1), material="measure"),
-           oe.sphere(radius=8.0, material="terminator", name="enclosure")]
-    src = P.CollimatedSource(center=(0, 0, -0.5), direction=(0, 0, 1),
-                             diameter=0.3, ray_count=2000, power=1.0, seed=22)
-    res, ora = run_both(els, src, iters=5, capacity=16384)
+    res, ora = run_config(2, 2000)
     assert res.ledger["measured"] == pytest.approx(ora["measured"], rel=PARITY)
     assert res.ledger["escaped"] == pytest.approx(ora["escaped"], rel=5e-3,
                                                   abs=1e-5)
 
 
 def test_config3_lens_stack_with_splitting():
-    els = [oe.biconvex_lens(1.0, 0.8, 0.2, ior=1.5),
-           oe.biconvex_lens(1.5, 0.8, 0.15, ior=1.7).translate((0, 0, 0.5)),
-           oe.sphere(radius=6.0, material="measure", name="enclosure")]
-    src = P.CollimatedSource(center=(0, 0, -0.5), direction=(0, 0, 1),
-                             diameter=0.5, ray_count=1000, power=1.0, seed=23)
-    res, ora = run_both(els, src, iters=5, capacity=32768)
+    res, ora = run_config(3, 1000)
     assert res.ledger["measured"] == pytest.approx(ora["measured"], rel=PARITY)
     assert res.per_detector[0] == pytest.approx(ora["measured"], rel=PARITY)
 
