@@ -15,18 +15,21 @@ pass, 16 through a dispersive prism wavelength-batched, and the white-light
 Michelson's per-wavelength field planes), the epilogue-variant bench
 (variant_bench.micro_variants / epilogue_variants at the bench's intersect
 shape), BASELINE configs 1-3 against the port's float64 oracle (detected
-power within 0.1 %, the oracle on its native g++ core where there is one)
-and the 26 example scripts that need neither diff nor the multi-device
-modes (each copied with its import root swapped and run in its own process
-at its default size), holds every kernel against its plain torch version
-(the nearest-hit kernel also on rays built to sit on its reject margin,
-from edge_rays.py, and on the rays and cull masks that the physics traces
-and config 4 really launch it with), and checks the physics (power ledger,
-detected power, statistics of the random branches, repeatability,
-checkpoint resume). It prints the kernel's resources, its times beside
-their bound, and the profiler's split of six warm traces. Any failed check
-raises, so the script exits non-zero and prints no result. Without a CUDA
-device it exits non-zero at once. It imports nothing of JAX.
+power within 0.1 %, the oracle on its native g++ core where there is one),
+the 30 example scripts that need no multi-device mode (each copied with its
+import root swapped and run in its own process at its default size) and
+differentiable design on torch autograd (diff.py: the lensmaker and
+stigmatic-conic descents, the loss and gradient on the card against the
+CPU, a V-coat designed and traced), holds every kernel against its plain
+torch version (the nearest-hit kernel also on rays built to sit on its
+reject margin, from edge_rays.py, and on the rays and cull masks that the
+physics traces and config 4 really launch it with), and checks the physics
+(power ledger, detected power, statistics of the random branches,
+repeatability, checkpoint resume). It prints the kernel's resources, its
+times beside their bound, and the profiler's split of six warm traces and
+one design step. Any failed check raises, so the script exits non-zero
+and prints no result. Without a CUDA device it exits non-zero at once. It
+imports nothing of JAX.
 
 Output: one line per phase; then the kernel table as JSON, the card's
 `nvidia-smi` name and power limit, and last
@@ -1078,17 +1081,41 @@ def oracle_phases(P, PI):
 
 
 # ---- 24. the example scripts through the port -----------------------------
-# the five that need a module the port lacks: diff (ROADMAP A 6) or
-# parallel (A 7)
-EXAMPLES_NOT_PORTED = {"example_bestform.py": "diff",
-                       "example_coating_design.py": "diff",
-                       "example_lens_design.py": "diff",
-                       "example_tolerancing.py": "diff",
-                       "example_multichip.py": "parallel"}
-# Two scripts call jax themselves, for an analytic cross-check of a
-# physics function on a handful of numbers; the card's machine has no jax,
-# so their copies also get these lines in torch (the same functions of the
-# port, on the same numbers)
+# the one that needs a module the port lacks: parallel (ROADMAP A 7)
+EXAMPLES_NOT_PORTED = {"example_multichip.py": "parallel"}
+# the scripts that run only the differentiable path (diff.py), which never
+# launches the nearest-hit kernel
+DIFF_ONLY = {"example_bestform.py", "example_lens_design.py"}
+# jax.value_and_grad / jax.grad on torch autograd, for the copies of the
+# design scripts: the gradient of f in its positional arguments `argnums`
+# at leaves on the card
+TORCH_AD = """import torch
+
+
+def value_and_grad(f, argnums=0):
+    nums = (argnums,) if isinstance(argnums, int) else tuple(argnums)
+
+    def vg(*args):
+        args = [torch.as_tensor(a, dtype=torch.float32, device="cuda")
+                .detach().requires_grad_(i in nums)
+                for i, a in enumerate(args)]
+        v = f(*args)
+        g = torch.autograd.grad(v, [args[i] for i in nums])
+        return v.detach(), g[0] if isinstance(argnums, int) else g
+    return vg
+
+
+def grad(f, argnums=0):
+    vg = value_and_grad(f, argnums)
+    return lambda *args: vg(*args)[1]
+"""
+# Five scripts call jax themselves: two for an analytic cross-check of a
+# physics function on a handful of numbers, three (the lens-design,
+# tolerancing and best-form demos) for their design loops' autodiff and
+# optimizer. The card's machine has no jax, so their copies also get these
+# lines in torch (the same functions of the port, on the same
+# numbers; optax.adam -> torch.optim.Adam, bestform's jax.vmap over focus
+# planes -> a loop)
 JAX_LINES = {
     "example_newtonian.py": [
         ("import jax\nimport jax.numpy as jnp\n", "import torch\n"),
@@ -1103,6 +1130,33 @@ JAX_LINES = {
          "dtype=torch.float32)"),
         ("import jax as _jax\n\n_ml = _jax.jit(multilayer_reflectance)",
          "_ml = multilayer_reflectance")],
+    "example_lens_design.py": [
+        ("import jax\nimport jax.numpy as jnp\n", TORCH_AD),
+        ("jax.jit(jax.value_and_grad(", "(value_and_grad("),
+        ("jnp.float32(", "torch.tensor(")],
+    "example_tolerancing.py": [
+        ("import jax\nimport jax.numpy as jnp\n", TORCH_AD),
+        ("gfn = jax.jit(jax.grad(loss, argnums=0))",
+         "gfn = grad(loss, argnums=0)")],
+    "example_bestform.py": [
+        ("import jax\nimport jax.numpy as jnp\nimport numpy as np\n"
+         "import optax\n", "import numpy as np\n" + TORCH_AD),
+        ("loss = jax.jit(lambda k2: loss_full(0.0, c2, 0.0, k2, t_c + f))",
+         "loss = lambda k2: loss_full(0.0, c2, 0.0, k2, t_c + f)"),
+        ("vg = jax.jit(jax.value_and_grad(loss))",
+         "vg = value_and_grad(loss)"),
+        ("k2 = jnp.float32(0.0)\nopt = optax.adam(0.15)\n"
+         "state = opt.init(k2)\n",
+         "k2 = torch.zeros((), device=\"cuda\", requires_grad=True)\n"
+         "opt = torch.optim.Adam([k2], lr=0.15)\n"),
+        ("    upd, state = opt.update(g, state)\n"
+         "    k2 = optax.apply_updates(k2, upd)\n",
+         "    k2.grad = g\n    opt.step()\n"),
+        ("zs = jnp.linspace(", "zs = torch.linspace("),
+        ("batch = jax.jit(jax.vmap(\n    lambda z, q: lf(",
+         "batch = lambda zs, q: torch.stack([lf("),
+        ("0.0, 0.0, z),\n    in_axes=(0, None)))", "0.0, 0.0, z) for z in zs])"),
+        ("jnp.min(", "torch.min(")],
 }
 EXAMPLE_WORKERS = 4
 EXAMPLE_TIMEOUT_S = 300
@@ -1132,7 +1186,7 @@ def example_copy(src: str, name: str):
 
 
 def example_phases(P, PI):
-    """Phase 24: every example script that needs neither diff nor parallel,
+    """Phase 24: every example script that needs no multi-device module,
     copied with its import root swapped, each in its own python3 process
     on the card at its own default size (LPCL_FORCE_CPU unset), four at a
     time. Returns the (brute, culled) kernel launches of the scripts."""
@@ -1143,7 +1197,7 @@ def example_phases(P, PI):
     names = sorted(os.path.basename(f) for f in glob.glob(
         os.path.join(repo, "examples", "example_*.py")))
     names = [n for n in names if n not in EXAMPLES_NOT_PORTED]
-    check(len(names) == 26, f"26 example scripts to run, found {len(names)}")
+    check(len(names) == 30, f"30 example scripts to run, found {len(names)}")
     tmpdir = tempfile.TemporaryDirectory(prefix="lpcl_examples_")
     tmp = tmpdir.name
     env = dict(os.environ)
@@ -1201,8 +1255,271 @@ def example_phases(P, PI):
                           for n, m in sorted(EXAMPLES_NOT_PORTED.items())))
     failed = [r["name"] for r in rows if r["rc"] != 0]
     check(not failed, f"example scripts exited non-zero: {failed}")
-    check(all(r["brute"] + r["cull"] > 0 for r in rows),
-          "every example script launched the kernel")
+    check(all((r["brute"] + r["cull"] > 0) != (r["name"] in DIFF_ONLY)
+              for r in rows),
+          "every example script launched the kernel, but for the two that "
+          "run only the differentiable path, which launched none")
+    return brute, cull
+
+
+# ---- 25. differentiable design on the card ---------------------------------
+LENSMAKER = dict(ior=1.5, thickness=0.3, aperture_radius=0.2, n_rays=150,
+                 beam_fill=0.75, n_seg=64, n_rad=24)   # tests/test_diff.py
+CONIC_F, CONIC_T = 3.0, 0.15     # the flat-front f/3.3 singlet (demo 3)
+CONIC_C2 = -1.0 / (0.5 * CONIC_F)
+CONIC_MESH = dict(ior=1.5, thickness=CONIC_T, aperture_radius=0.6,
+                  n_rays=300, beam_fill=0.75, n_seg=64, n_rad=96)
+VCOAT = dict(n_sub=1.52, wavelengths=[0.55], fixed_n=[1.38, 2.10],
+             steps=1500, lr=0.02)
+VCOAT_RAYS = 1 << 16
+
+
+def synced_s(fn):
+    """fn()'s result and its wall in seconds, to a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def profile_step(fn, top=3):
+    """One warm call of fn under torch.profiler: the device's busy time,
+    its idle share of the call's wall (from a call without the profiler),
+    the number of device kernels and the `top` largest ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, wall = synced_s(fn)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy, kernels, tops = 0.0, 0, []
+    for ev in prof.key_averages():
+        ms = _device_ms(ev)
+        if ev.device_type.name != "CUDA" or ms <= 0:
+            continue
+        busy += ms
+        kernels += ev.count
+        tops.append((ms, ev.key[:40].replace(" ", "_")))
+    tops.sort(reverse=True)
+    return {"wall_ms": wall * 1e3, "busy_ms": busy,
+            "idle_share": f"{1 - busy / (wall * 1e3):.4f}",
+            "kernels": kernels,
+            "top": ",".join(f"{k}:{ms:.3f}" for ms, k in tops[:top])}
+
+
+class DefaultDeviceCPU:
+    """The port's default device (`engine.resolve_device`) is the CPU
+    inside the block: a loss factory then builds its rays there."""
+
+    def __enter__(self):
+        from lightpycl_tpu_torch.tracer import engine
+        self.engine, self.orig = engine, engine.resolve_device
+        engine.resolve_device = lambda device: torch.device("cpu")
+
+    def __exit__(self, *exc):
+        self.engine.resolve_device = self.orig
+
+
+def design_phases(P, PI):
+    """Phase 25: differentiable design (diff.py) on the card: the lensmaker
+    descent, make_spot_loss and its gradient on the card against the CPU,
+    the stigmatic conic (exact surfaces and mesh), and the V-coat designed
+    and traced. Returns the (brute, culled) kernel launches of the V-coat
+    traces; the design loops themselves must launch none."""
+    from lightpycl_tpu_torch import diff as D
+
+    cuda = torch.device("cuda")
+    PI.nearest_hit_cuda.launches = PI.nearest_hit_cuda.cull_launches = 0
+    t_phase = time.perf_counter()
+
+    # (a) tests/test_diff.py's lensmaker descent: 60 steps of 0.1 x grad
+    loss = D.make_spot_loss(**LENSMAKER)
+    c1 = torch.tensor(0.62, device=cuda)
+    walls = []
+
+    def step(c):
+        x = c.clone().requires_grad_(True)
+        v = loss(x, 0.0, 4.0)
+        g, = torch.autograd.grad(v, x)
+        return v.detach(), g
+
+    for _ in range(60):
+        (v, g), wall = synced_s(lambda: step(c1))
+        walls.append(wall * 1e3)
+        c1 = c1 - 0.1 * g
+    c1_opt, v_last = c1.item(), v.item()
+    c1_theory = 1.0 / (0.5 * 3.9)
+    rel = abs(c1_opt - c1_theory) / c1_theory
+    line("25a lensmaker", steps=60, c1=f"{c1_opt:.6f}",
+         c1_theory=f"{c1_theory:.6f}", rel_err=f"{rel:.5f}",
+         spot_rms=f"{v_last:.6f}", rays=LENSMAKER["n_rays"],
+         slots=4 * LENSMAKER["n_rays"],
+         triangles=2 * 2 * 64 * 24 + 2 * 64,
+         step_ms_first=f"{walls[0]:.3f}",
+         step_ms_median=f"{np.median(walls[1:]):.3f}",
+         step_ms_min=f"{min(walls[1:]):.3f}",
+         loop_s=f"{sum(walls) / 1e3:.3f}")
+    check(rel <= 0.02, "phase 25a: c1 within 2% of the lensmaker value")
+    check(v_last < 6e-3, "phase 25a: the spot collapsed below 6e-3")
+    line("25a profile", **profile_step(lambda: step(c1)))
+
+    # (b) make_spot_loss and its gradient on the card and on the CPU
+    args = (0.0, CONIC_C2, CONIC_T + CONIC_F)
+
+    def value_grad(loss_fn, dev):
+        xs = [torch.tensor(a, device=dev, requires_grad=True) for a in args]
+        v = loss_fn(*xs)
+        return v.item(), [x.item() for x in torch.autograd.grad(v, xs)]
+
+    card_loss = D.make_spot_loss(**CONIC_MESH)
+    (v_c, g_c), card_s = synced_s(lambda: value_grad(card_loss, cuda))
+    (v_c, g_c), card_s = synced_s(lambda: value_grad(card_loss, cuda))
+    with DefaultDeviceCPU():
+        cpu_loss = D.make_spot_loss(**CONIC_MESH)
+    t0 = time.perf_counter()
+    v_h, g_h = value_grad(cpu_loss, torch.device("cpu"))
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(v_c - v_h) / abs(v_h)
+    grad_rel = [abs(a - b) / max(abs(b), 1e-7) for a, b in zip(g_c, g_h)]
+    line("25b card_vs_cpu", loss_card=f"{v_c:.9g}", loss_cpu=f"{v_h:.9g}",
+         loss_rel=f"{loss_rel:.3e}",
+         grad_card=",".join(f"{x:.9g}" for x in g_c),
+         grad_cpu=",".join(f"{x:.9g}" for x in g_h),
+         grad_rel_max=f"{max(grad_rel):.3e}", rays=CONIC_MESH["n_rays"],
+         triangles=2 * 2 * 64 * 96 + 2 * 64,
+         card_ms=f"{card_s * 1e3:.3f}", cpu_ms=f"{cpu_s * 1e3:.3f}",
+         cpu_threads=torch.get_num_threads())
+    check(loss_rel <= 1e-5, "phase 25b: loss on the card within 1e-5 of "
+          "the CPU's")
+    check(max(grad_rel) <= 1e-4, "phase 25b: gradient on the card within "
+          "1e-4 of the CPU's")
+
+    # (c) the stigmatic conic k = -n^2: exact surfaces (landscape, Adam),
+    # then tests/test_diff.py's meshed momentum descent
+    lf = D.make_analytic_spot_loss(ior=1.5, thickness=CONIC_T,
+                                   aperture_radius=0.6, n_rays=300,
+                                   beam_fill=0.75)
+
+    def conic(k2):
+        return lf(0.0, CONIC_C2, 0.0, k2, CONIC_T + CONIC_F)
+
+    with torch.no_grad():
+        v_star, v_sph = conic(-2.25).item(), conic(0.0).item()
+        v_lo, v_hi = conic(-2.1).item(), conic(-2.4).item()
+    check(v_star < 1e-6 and v_sph > 1e-2 and min(v_lo, v_hi) > 100 * v_star,
+          "phase 25c: the exact landscape's minimum sits at k = -n^2")
+    k2 = torch.zeros((), device=cuda, requires_grad=True)
+    opt = torch.optim.Adam([k2], lr=0.15)
+    best_v, best_k = np.inf, 0.0
+
+    def adam_loop():
+        nonlocal best_v, best_k
+        for _ in range(60):
+            opt.zero_grad()
+            v = conic(k2)
+            v.backward()
+            if v.item() < best_v:
+                best_v, best_k = v.item(), k2.item()
+            opt.step()
+
+    _, adam_s = synced_s(adam_loop)
+    line("25c analytic_conic", v_at_minus_n2=f"{v_star:.3e}",
+         v_sphere=f"{v_sph:.3e}", steps=60, best_k=f"{best_k:.5f}",
+         best_v=f"{best_v:.3e}", loop_s=f"{adam_s:.3f}",
+         step_ms=f"{adam_s / 60 * 1e3:.3f}")
+    check(abs(best_k + 2.25) <= 0.02 and best_v < 1e-4,
+          "phase 25c: Adam finds k = -n^2 on exact surfaces")
+
+    rays0 = D.collimated_bundle(300, 0.45)
+    mp = 0.25 * rays0.power.max().item()
+    mesh_cfg = P.TraceConfig(backend="jnp", has_gratings=False,
+                             has_coatings=False, has_metals=False)
+
+    def mesh_conic(k):
+        scene = D.singlet_scene(0.0, CONIC_C2, CONIC_T, 0.6, 1.5, n_seg=64,
+                                n_rad=96, k2=k)
+        _, esc = D.trace_diff(scene, rays0, mesh_cfg, 4,
+                              collect_escaped=True)
+        return D.spot_rms_at_plane(*esc, CONIC_T + CONIC_F, min_power=mp)
+
+    with torch.no_grad():
+        v0 = mesh_conic(0.0).item()
+    k, mom = torch.zeros((), device=cuda), 0.0
+
+    def momentum_loop():
+        nonlocal k, mom
+        for _ in range(25):
+            x = k.clone().requires_grad_(True)
+            v = mesh_conic(x)
+            g, = torch.autograd.grad(v, x)
+            mom = 0.7 * mom + g
+            k = k - 25.0 * mom
+        return v.item()
+
+    v_mesh, mesh_s = synced_s(momentum_loop)
+    line("25c mesh_conic", steps=25, k2=f"{k.item():.5f}",
+         v=f"{v_mesh:.3e}", v_sphere=f"{v0:.3e}", loop_s=f"{mesh_s:.3f}",
+         step_ms=f"{mesh_s / 25 * 1e3:.3f}",
+         triangles=2 * 2 * 64 * 96 + 2 * 64, slots=1200)
+    check(abs(k.item() + 2.25) <= 0.35 and v_mesh < 0.35 * v0,
+          "phase 25c: the meshed descent finds k = -n^2 within its facet "
+          "bias")
+    check(PI.nearest_hit_cuda.launches == 0,
+          "phase 25a-c: the design loops launched no nearest-hit kernel")
+
+    # (d) the V-coat designed, then traced on a coated window
+    (n, h, r), design_s = synced_s(lambda: D.design_coating(2, **VCOAT))
+    check(np.allclose(n, [1.38, 2.10]) and (h > 0).all() and r < 1e-8,
+          "phase 25d: the V-coat nulls R below 1e-8")
+    # the same loop on the host's CPU: its steps are a few hundred tiny ops
+    with DefaultDeviceCPU():
+        t0 = time.perf_counter()
+        _, h_cpu, _ = D.design_coating(2, **VCOAT)
+        design_cpu_s = time.perf_counter() - t0
+    check(np.abs(h_cpu - h).max() <= 1e-3,
+          "phase 25d: the card's and the CPU's V-coats within 1e-3")
+    oe = P.optical_elements(n_segments=24, n_radial=8)
+
+    def window(coating):
+        kw = dict(coating=coating) if coating else {}
+        return [oe.cube(size=(0.8, 0.8, 0.2), material="refractive",
+                        ior=1.52, name="window", **kw),
+                oe.disc(radius=1.2, center=(0, 0, 2.0), material="measure",
+                        name="fwd"),
+                oe.sphere(radius=6.0, material="terminator")]
+
+    src = P.CollimatedSource(center=(0, 0, -1.0), direction=(0, 0, 1),
+                             diameter=0.3, ray_count=VCOAT_RAYS, power=1.0,
+                             seed=3, wavelength=0.55)
+
+    def transmission(coating):
+        return P.Tracer().trace(src, window(coating), trace_iterations=10,
+                                capacity=4 * VCOAT_RAYS).detector_power(
+                                    "fwd")
+
+    (t_coat, brute, cull), coat_s = synced_s(lambda: counted(
+        PI, lambda: transmission([(1.38, float(h[0])),
+                                  (2.10, float(h[1]))])))
+    t_bare = transmission(None)
+    r_bare = (0.52 / 2.52) ** 2
+    t_pred = (1 - r_bare) ** 2 / (1 - r_bare ** 2)
+    line("25d vcoat", steps=VCOAT["steps"], h_nm=",".join(
+        f"{x * 1e3:.3f}" for x in h), R=f"{r:.3e}",
+         design_s=f"{design_s:.3f}",
+         design_step_ms=f"{design_s / VCOAT['steps'] * 1e3:.3f}",
+         design_cpu_s=f"{design_cpu_s:.3f}",
+         h_cpu_nm=",".join(f"{x * 1e3:.3f}" for x in h_cpu),
+         rays=VCOAT_RAYS, t_coated=f"{t_coat:.6f}", t_bare=f"{t_bare:.6f}",
+         t_bare_predicted=f"{t_pred:.6f}", trace_s=f"{coat_s:.3f}",
+         launches=brute, cull_launches=cull)
+    check(t_coat > 0.999, "phase 25d: the designed V-coat transmits > 0.999 "
+          "through the tracer")
+    check(abs(t_bare - t_pred) <= 2e-4 and t_coat > t_bare + 0.07,
+          "phase 25d: the bare window transmits the two-surface series")
+    check(brute + cull > 0, "phase 25d: the trace launched the kernel")
+    line("25 design", phase_s=f"{time.perf_counter() - t_phase:.1f}")
     return brute, cull
 
 
@@ -1735,16 +2052,18 @@ def main():
 
     oracle_brute, oracle_cull = oracle_phases(P, PI)
     ex_brute, ex_cull = example_phases(P, PI)
+    design_brute, design_cull = design_phases(P, PI)
 
     table = {"kernels": [
         {"name": "nearest_hit (B1, brute)", "route": "cuda",
          "source": KERNEL_SRC, "replaces": f"{TPU_KERNEL}:154",
          "launches": (launches - cull_launches + launches4 - cull_launches4
-                      + new_brute + spec_brute + oracle_brute + ex_brute),
+                      + new_brute + spec_brute + oracle_brute + ex_brute
+                      + design_brute),
          "launches_trace_batched": launches4 - cull_launches4,
          "launches_physics": new_brute, "launches_spectral": spec_brute,
          "launches_oracle_parity": oracle_brute,
-         "launches_examples": ex_brute,
+         "launches_examples": ex_brute, "launches_design": design_brute,
          "max_abs_err": b1_err,
          "ms": b1_ms, "plain_ms": b1_plain_ms, "bound_ms": b1_bound_ms,
          "bound_by": b1_bound_by, "share_of_bound": b1_bound_ms / b1_ms,
@@ -1753,11 +2072,11 @@ def main():
         {"name": "nearest_hit (B2, cull)", "route": "cuda",
          "source": KERNEL_SRC, "replaces": f"{TPU_KERNEL}:185",
          "launches": (cull_launches + cull_launches4 + new_cull + spec_cull
-                      + oracle_cull + ex_cull),
+                      + oracle_cull + ex_cull + design_cull),
          "launches_trace_batched": cull_launches4,
          "launches_physics": new_cull, "launches_spectral": spec_cull,
          "launches_oracle_parity": oracle_cull,
-         "launches_examples": ex_cull,
+         "launches_examples": ex_cull, "launches_design": design_cull,
          "max_abs_err": b2_err,
          "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound_ms,
          "bound_by": b2_bound_by, "share_of_bound": b2_bound_ms / b2_ms,

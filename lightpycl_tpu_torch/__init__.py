@@ -19,8 +19,10 @@ sources' device samplers, checkpoint / resume and ray-file replay
 `lightpycl_tpu_torch.spectral`), and the host side: the float64 parity
 oracle (`tracer.oracle`, `native`), `analysis`, `paraxial`, every `io`
 format, `utils` and the reference-named modules (`iterative_tracer`,
-`light_source`, `geo_optical_elements`); unported entry points (diff,
-multi-device) raise NotImplementedError (ROADMAP.md).
+`light_source`, `geo_optical_elements`), and differentiable design on
+torch autograd (`lightpycl_tpu_torch.diff`: lens and coating design loops).
+The multi-device modes are not ported yet and raise NotImplementedError
+(ROADMAP.md).
 """
 
 from lightpycl_tpu_torch.materials import Material, glass

@@ -30,18 +30,18 @@ _INF = float("inf")
 
 
 def _to_local(v, frame):
-    """v (C, 3) world -> local: row i of `frame` (3, 3) or (C, 3, 3) is
-    local axis i. Elementwise products and sums only."""
+    """v (..., 3) world -> local: row i of `frame` (..., 3, 3) is local
+    axis i (leading axes broadcast). Elementwise products and sums only."""
     return torch.stack(
-        [v[:, 0] * frame[..., i, 0] + v[:, 1] * frame[..., i, 1]
-         + v[:, 2] * frame[..., i, 2] for i in range(3)], dim=1)
+        [v[..., 0] * frame[..., i, 0] + v[..., 1] * frame[..., i, 1]
+         + v[..., 2] * frame[..., i, 2] for i in range(3)], dim=-1)
 
 
 def _to_world(v, frame):
-    """v (C, 3) local -> world: sum_i v_i * (row i of frame)."""
+    """v (..., 3) local -> world: sum_i v_i * (row i of frame)."""
     return torch.stack(
-        [v[:, 0] * frame[..., 0, j] + v[:, 1] * frame[..., 1, j]
-         + v[:, 2] * frame[..., 2, j] for j in range(3)], dim=1)
+        [v[..., 0] * frame[..., 0, j] + v[..., 1] * frame[..., 1, j]
+         + v[..., 2] * frame[..., 2, j] for j in range(3)], dim=-1)
 
 
 def _intersect_one(o, d, abgd, rlim2, zlim, vertex, frame, eps, eps_b,

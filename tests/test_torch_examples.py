@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import lightpycl_tpu_torch.tracer.engine as engine
+from lightpycl_tpu_torch.tracer.rays import RayBatch
 
 torch.set_num_threads(1)
 
@@ -31,9 +32,13 @@ sys.path.remove(EXAMPLES)
 
 @pytest.fixture
 def port_on_cpu(monkeypatch):
-    """Every Tracer the port builds runs on the CPU."""
+    """Every Tracer the port builds, and every RayBatch.from_arrays given
+    no device, runs on the CPU."""
     monkeypatch.setattr(engine, "resolve_device",
                         lambda device: torch.device("cpu"))
+    from_arrays = RayBatch.from_arrays
+    monkeypatch.setattr(RayBatch, "from_arrays", staticmethod(
+        lambda *a, device="cpu", **kw: from_arrays(*a, device=device, **kw)))
 
 
 def swapped_copy(name, dst_dir):
@@ -47,7 +52,8 @@ def swapped_copy(name, dst_dir):
 
 @pytest.mark.parametrize("name", ["example_field_sweep.py",
                                   "example_led_collimator.py",
-                                  "example_codev.py", "example_zmx.py"])
+                                  "example_codev.py", "example_zmx.py",
+                                  "example_coating_design.py"])
 def test_example_runs_on_the_port(name, port_on_cpu, tmp_path, monkeypatch,
                                   capsys):
     monkeypatch.delenv("LPCL_FORCE_CPU", raising=False)

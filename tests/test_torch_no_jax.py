@@ -174,6 +174,20 @@ SCRIPT = textwrap.dedent("""
     assert analysis.best_focus(res.measured_pos, res.measured_dir)[1] >= 0
     assert analysis.zernike_fit(res.measured_pos[:, :2],
                                 res.measured_opl)["coeffs"].shape == (11,)
+    # differentiable design on torch autograd (CPU tensors set the device)
+    from lightpycl_tpu_torch import diff
+    c1 = torch.tensor(0.5, requires_grad=True)
+    lens = diff.singlet_scene(c1, 0.0, 0.3, 1.0, 1.5, n_seg=8, n_rad=2)
+    bundle = diff.collimated_bundle(16, torch.tensor(0.5))
+    _, esc = diff.trace_diff(lens, bundle, diff.TraceConfig(
+        has_gratings=False, has_coatings=False, has_metals=False), 4,
+        collect_escaped=True)
+    g, = torch.autograd.grad(diff.spot_rms_at_plane(*esc, 4.0), c1)
+    assert torch.isfinite(g) and g != 0.0, g
+    h = torch.tensor(0.1, requires_grad=True)
+    g, = torch.autograd.grad(diff.band_reflectance(
+        [1.38], [h], n_sub=1.52, wavelengths=torch.tensor([0.55])), h)
+    assert torch.isfinite(g), g
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "lightpycl_tpu"))
     assert not leaked, leaked

@@ -2,24 +2,44 @@
 physics (tests/test_torch_shade_*.py, test_torch_quadric.py,
 test_torch_trace_physics.py) against the JAX package: one cfg resolved by
 the reference engine for both sides, the reference's own random draws as
-the port's uniforms, and the field-by-field compare of two ShadeOuts."""
+the port's uniforms, the field-by-field compare of two ShadeOuts; for the
+design tests, a module fixture that makes the port's default device the
+CPU and float32 leaves to differentiate."""
 
 import dataclasses
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import lightpycl_tpu as L
 import lightpycl_tpu_torch as P
 from lightpycl_tpu.tracer import step as R
 from lightpycl_tpu.tracer.engine import Tracer as RefTracer
+from lightpycl_tpu_torch.tracer import engine
 from lightpycl_tpu_torch.tracer import step as S
 from lightpycl_tpu_torch.tracer.rays import DetectorState, Ledger, RayBatch
 from lightpycl_tpu_torch.tracer.scene import Scene
 
 CPU = torch.device("cpu")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def port_default_cpu():
+    """The port's default device (CUDA: `engine.resolve_device`) is the
+    CPU for every test of a module that imports this fixture."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(engine, "resolve_device", lambda device: CPU)
+        yield
+
+
+def leaves(*xs):
+    """float32 scalar tensors that require grad, one for each number."""
+    return [torch.tensor(x, dtype=torch.float32, requires_grad=True)
+            for x in xs]
+
 
 ref_shade = jax.jit(R.shade, static_argnames=("cfg",))
 
