@@ -1309,19 +1309,6 @@ def profile_step(fn, top=3):
             "top": ",".join(f"{k}:{ms:.3f}" for ms, k in tops[:top])}
 
 
-class DefaultDeviceCPU:
-    """The port's default device (`engine.resolve_device`) is the CPU
-    inside the block: a loss factory then builds its rays there."""
-
-    def __enter__(self):
-        from lightpycl_tpu_torch.tracer import engine
-        self.engine, self.orig = engine, engine.resolve_device
-        engine.resolve_device = lambda device: torch.device("cpu")
-
-    def __exit__(self, *exc):
-        self.engine.resolve_device = self.orig
-
-
 def design_phases(P, PI):
     """Phase 25: differentiable design (diff.py) on the card: the lensmaker
     descent, make_spot_loss and its gradient on the card against the CPU,
@@ -1331,6 +1318,19 @@ def design_phases(P, PI):
     from lightpycl_tpu_torch import diff as D
 
     cuda = torch.device("cuda")
+    mesh_cfg = P.TraceConfig(backend="jnp", has_gratings=False,
+                             has_coatings=False, has_metals=False)
+
+    def mesh_spot(rays, c1, c2, z_plane, k2=0.0):
+        """make_spot_loss's figure of merit for CONIC_MESH's singlet (back
+        conic k2) on the given rays, which set the device."""
+        scene = D.singlet_scene(c1, c2, CONIC_T, CONIC_MESH["aperture_radius"],
+                                CONIC_MESH["ior"], n_seg=CONIC_MESH["n_seg"],
+                                n_rad=CONIC_MESH["n_rad"], k2=k2)
+        _, esc = D.trace_diff(scene, rays, mesh_cfg, 4, collect_escaped=True)
+        return D.spot_rms_at_plane(*esc, z_plane,
+                                   min_power=0.25 * rays.power.max().item())
+
     PI.nearest_hit_cuda.launches = PI.nearest_hit_cuda.cull_launches = 0
     t_phase = time.perf_counter()
 
@@ -1376,10 +1376,12 @@ def design_phases(P, PI):
     card_loss = D.make_spot_loss(**CONIC_MESH)
     (v_c, g_c), card_s = synced_s(lambda: value_grad(card_loss, cuda))
     (v_c, g_c), card_s = synced_s(lambda: value_grad(card_loss, cuda))
-    with DefaultDeviceCPU():
-        cpu_loss = D.make_spot_loss(**CONIC_MESH)
+    # the CPU side: the same bundle and trace from tensors on the CPU
+    rays_h = D.collimated_bundle(CONIC_MESH["n_rays"], torch.tensor(
+        CONIC_MESH["beam_fill"] * CONIC_MESH["aperture_radius"]))
     t0 = time.perf_counter()
-    v_h, g_h = value_grad(cpu_loss, torch.device("cpu"))
+    v_h, g_h = value_grad(lambda *xs: mesh_spot(rays_h, *xs),
+                          torch.device("cpu"))
     cpu_s = time.perf_counter() - t0
     loss_rel = abs(v_c - v_h) / abs(v_h)
     grad_rel = [abs(a - b) / max(abs(b), 1e-7) for a, b in zip(g_c, g_h)]
@@ -1432,17 +1434,11 @@ def design_phases(P, PI):
     check(abs(best_k + 2.25) <= 0.02 and best_v < 1e-4,
           "phase 25c: Adam finds k = -n^2 on exact surfaces")
 
-    rays0 = D.collimated_bundle(300, 0.45)
-    mp = 0.25 * rays0.power.max().item()
-    mesh_cfg = P.TraceConfig(backend="jnp", has_gratings=False,
-                             has_coatings=False, has_metals=False)
+    rays0 = D.collimated_bundle(CONIC_MESH["n_rays"], CONIC_MESH[
+        "beam_fill"] * CONIC_MESH["aperture_radius"])
 
     def mesh_conic(k):
-        scene = D.singlet_scene(0.0, CONIC_C2, CONIC_T, 0.6, 1.5, n_seg=64,
-                                n_rad=96, k2=k)
-        _, esc = D.trace_diff(scene, rays0, mesh_cfg, 4,
-                              collect_escaped=True)
-        return D.spot_rms_at_plane(*esc, CONIC_T + CONIC_F, min_power=mp)
+        return mesh_spot(rays0, 0.0, CONIC_C2, CONIC_T + CONIC_F, k2=k)
 
     with torch.no_grad():
         v0 = mesh_conic(0.0).item()
@@ -1473,13 +1469,6 @@ def design_phases(P, PI):
     (n, h, r), design_s = synced_s(lambda: D.design_coating(2, **VCOAT))
     check(np.allclose(n, [1.38, 2.10]) and (h > 0).all() and r < 1e-8,
           "phase 25d: the V-coat nulls R below 1e-8")
-    # the same loop on the host's CPU: its steps are a few hundred tiny ops
-    with DefaultDeviceCPU():
-        t0 = time.perf_counter()
-        _, h_cpu, _ = D.design_coating(2, **VCOAT)
-        design_cpu_s = time.perf_counter() - t0
-    check(np.abs(h_cpu - h).max() <= 1e-3,
-          "phase 25d: the card's and the CPU's V-coats within 1e-3")
     oe = P.optical_elements(n_segments=24, n_radial=8)
 
     def window(coating):
@@ -1499,9 +1488,10 @@ def design_phases(P, PI):
                                 capacity=4 * VCOAT_RAYS).detector_power(
                                     "fwd")
 
-    (t_coat, brute, cull), coat_s = synced_s(lambda: counted(
-        PI, lambda: transmission([(1.38, float(h[0])),
-                                  (2.10, float(h[1]))])))
+    with LaunchTap(PI, (0, 1)) as tap:
+        (t_coat, brute, cull), coat_s = synced_s(lambda: counted(
+            PI, lambda: transmission([(1.38, float(h[0])),
+                                      (2.10, float(h[1]))])))
     t_bare = transmission(None)
     r_bare = (0.52 / 2.52) ** 2
     t_pred = (1 - r_bare) ** 2 / (1 - r_bare ** 2)
@@ -1509,11 +1499,12 @@ def design_phases(P, PI):
         f"{x * 1e3:.3f}" for x in h), R=f"{r:.3e}",
          design_s=f"{design_s:.3f}",
          design_step_ms=f"{design_s / VCOAT['steps'] * 1e3:.3f}",
-         design_cpu_s=f"{design_cpu_s:.3f}",
-         h_cpu_nm=",".join(f"{x * 1e3:.3f}" for x in h_cpu),
          rays=VCOAT_RAYS, t_coated=f"{t_coat:.6f}", t_bare=f"{t_bare:.6f}",
          t_bare_predicted=f"{t_pred:.6f}", trace_s=f"{coat_s:.3f}",
          launches=brute, cull_launches=cull)
+    check(sorted(tap.kept) == [0, 1], "phase 25d: launches 0 and 1 tapped")
+    for bounce, launch in sorted(tap.kept.items()):
+        hold_to_plain(PI, "25d vcoat", bounce, launch)
     check(t_coat > 0.999, "phase 25d: the designed V-coat transmits > 0.999 "
           "through the tracer")
     check(abs(t_bare - t_pred) <= 2e-4 and t_coat > t_bare + 0.07,

@@ -119,11 +119,14 @@ class RayBatch(NamedTuple):
     def from_arrays(origins, dirs, powers, ior_env: float = 1.0,
                     capacity: int | None = None, wavelengths=None,
                     stokes=None,
-                    device: torch.device | str = "cuda") -> "RayBatch":
-        """Build a padded batch on `device` from host arrays (cast to f32
-        on the host, exactly as the reference casts them) or from tensors
-        (cast where they lie, then moved: the device samplers' path)."""
-        device = torch.device(device)
+                    device: torch.device | str | None = None) -> "RayBatch":
+        """Build a padded batch on `device` (default: the port's, CUDA)
+        from host arrays (cast to f32 on the host, exactly as the reference
+        casts them) or from tensors (cast where they lie, then moved: the
+        device samplers' path)."""
+        from lightpycl_tpu_torch.tracer.engine import resolve_device
+        device = (resolve_device("cuda") if device is None
+                  else torch.device(device))
 
         def f32(a):
             if isinstance(a, torch.Tensor):

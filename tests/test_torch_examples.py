@@ -3,10 +3,11 @@
 Each script is copied with its import root swapped (lightpycl_tpu ->
 lightpycl_tpu_torch; examples/ is not touched) and run in this process at
 examples/run_all.py's SMALL size, to its end with its own asserts
-holding. The fixture `port_on_cpu` makes the port's default device the
-CPU for the test alone (the package defaults to CUDA and has no switch
-for it). The reference's test_reference_module_names
-(tests/test_compat.py) runs against the port's reference-named modules.
+holding. The fixture `port_default_cpu` (tests/torch_port_common.py)
+makes the port's default device the CPU for this module (the package
+defaults to CUDA and has no switch for it). The reference's
+test_reference_module_names (tests/test_compat.py) runs against the
+port's reference-named modules.
 """
 
 import os
@@ -17,8 +18,7 @@ import sys
 import pytest
 import torch
 
-import lightpycl_tpu_torch.tracer.engine as engine
-from lightpycl_tpu_torch.tracer.rays import RayBatch
+from torch_port_common import port_default_cpu  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -28,17 +28,6 @@ sys.path.insert(0, EXAMPLES)
 from run_all import SMALL  # noqa: E402
 
 sys.path.remove(EXAMPLES)
-
-
-@pytest.fixture
-def port_on_cpu(monkeypatch):
-    """Every Tracer the port builds, and every RayBatch.from_arrays given
-    no device, runs on the CPU."""
-    monkeypatch.setattr(engine, "resolve_device",
-                        lambda device: torch.device("cpu"))
-    from_arrays = RayBatch.from_arrays
-    monkeypatch.setattr(RayBatch, "from_arrays", staticmethod(
-        lambda *a, device="cpu", **kw: from_arrays(*a, device=device, **kw)))
 
 
 def swapped_copy(name, dst_dir):
@@ -54,8 +43,7 @@ def swapped_copy(name, dst_dir):
                                   "example_led_collimator.py",
                                   "example_codev.py", "example_zmx.py",
                                   "example_coating_design.py"])
-def test_example_runs_on_the_port(name, port_on_cpu, tmp_path, monkeypatch,
-                                  capsys):
+def test_example_runs_on_the_port(name, tmp_path, monkeypatch, capsys):
     monkeypatch.delenv("LPCL_FORCE_CPU", raising=False)
     for k, v in SMALL[name].items():
         monkeypatch.setenv(k, v)
@@ -68,7 +56,7 @@ def test_example_runs_on_the_port(name, port_on_cpu, tmp_path, monkeypatch,
     assert capsys.readouterr().out.strip()
 
 
-def test_reference_module_names(port_on_cpu):
+def test_reference_module_names():
     # upstream scripts port by changing only the import root
     from lightpycl_tpu_torch.geo_optical_elements import (
         optical_elements as oe_f)
