@@ -21,13 +21,15 @@ import root swapped and run in its own process at its default size) and
 differentiable design on torch autograd (diff.py: the lensmaker and
 stigmatic-conic descents, the loss and gradient on the card against the
 CPU, a V-coat designed and traced), holds every kernel against its plain
-torch version (the nearest-hit kernel also on rays built to sit on its
-reject margin, from edge_rays.py, and on the rays and cull masks that the
-physics traces and config 4 really launch it with), and checks the physics
+torch version (the nearest-hit kernel and every epilogue variant also on
+rays built to sit on their reject margin, from edge_rays.py, and the
+nearest hit on the rays and cull masks that the physics traces and config
+4 really launch it with), and checks the physics
 (power ledger, detected power, statistics of the random branches,
 repeatability, checkpoint resume). It prints the kernel's resources, its
 times beside their bound, and the profiler's split of six warm traces and
-one design step. Any failed check raises, so the script exits non-zero
+one design step, and each variant instantiation's registers, shared
+memory and CTAs an SM. Any failed check raises, so the script exits non-zero
 and prints no result. Without a CUDA device it exits non-zero at once. It
 imports nothing of JAX.
 
@@ -1539,12 +1541,20 @@ def main():
 
     # ---- 2. build the kernels from the checkout's sources, together ------
     t0 = time.perf_counter()
+
+    def timed(load):
+        lib = load()
+        return lib, time.perf_counter() - t0
+
     with ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(PI.load_kernel), pool.submit(IV.load_kernel)]
-        lib = builds[0].result()
-        builds[1].result()
+        builds = [pool.submit(timed, PI.load_kernel),
+                  pool.submit(timed, IV.load_kernel)]
+        lib, b1_build_s = builds[0].result()
+        _, variants_build_s = builds[1].result()
     build_s = time.perf_counter() - t0
     line("2 build", seconds=f"{build_s:.3f}",
+         intersect_s=f"{b1_build_s:.3f}",
+         variants_s=f"{variants_build_s:.3f}",
          library=_build.library_path("intersect.cu", dict(PI._DEFINES)).name,
          variants_library=_build.library_path("intersect_variants.cu",
                                               {}).name)
@@ -1558,21 +1568,38 @@ def main():
         if ptx.strip():
             print(f"[2 ptxas] {ptx.strip()}", flush=True)
     check(local == 0, "no local memory (no register spills)")
-    # the variants' registers, each under its template arguments as the
-    # entry's mangled name carries them (denom, notmax, min2, n_sub, reg)
+    # the variants' instantiations, each under its template arguments as
+    # the entry's mangled name carries them (denom, notmax, min2, n_sub,
+    # reg, rays a thread): ptxas's registers and spills, then its resources
+    # on the card at a ray block of that many rays a thread
     by_args = {(IV._DENOMS[v.denom], int(v.notmax), int(v.min2), v.n_sub,
                 int(v.reg)): name for name, v in IV.VARIANTS.items()}
-    entry, n_used = None, 0
+    entry, ptxas = None, {}
     for ptx in _build.ptxas_report("intersect_variants.cu"):
         m = re.search(r"variant_kernelILi(\d+)ELb(\d)ELb(\d)ELi(\d+)"
-                      r"ELb(\d)EE", ptx)
+                      r"ELb(\d)ELi(\d+)EE", ptx)
         if m:
-            entry = by_args[tuple(map(int, m.groups()))]
-        elif "Used" in ptx and entry is not None:
-            print(f"[2 ptxas variants] {entry}: "
-                  f"{ptx.split('Used', 1)[1].strip()}", flush=True)
-            n_used += 1
-    check(n_used == len(IV.VARIANTS), "one compiled kernel a variant")
+            g = tuple(map(int, m.groups()))
+            entry = (by_args[g[:5]], g[5])
+            ptxas.setdefault(entry, {})
+        elif entry is not None and "spill stores" in ptx:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", ptx)
+            ptxas[entry]["spills"] = spill.groups() if spill else None
+        elif entry is not None and "Used" in ptx:
+            ptxas[entry]["used"] = ptx.split("Used", 1)[1].strip()
+    check(len(ptxas) == 3 * len(IV.VARIANTS)
+          and all("used" in p for p in ptxas.values()),
+          "one compiled kernel a variant and rays-a-thread value")
+    for (name, rpt), p in sorted(ptxas.items()):
+        rb = {4: 256, 2: 64, 1: 32}[rpt]
+        res = IV.kernel_resources(name, rb)
+        line("2 variant resources", variant=name, ray_block=rb,
+             **res, ptxas=repr(p["used"]))
+        check(res["rays_per_thread"] == rpt, f"variant {name}: ray block "
+              f"{rb} picks {rpt} rays a thread")
+        check(p.get("spills") == ("0", "0") and res["local_bytes"] == 0,
+              f"variant {name} at {rpt} rays a thread: no spills")
 
     # ---- 3. B1 kernel vs plain at the bench's intersect shape -------------
     big = P.optical_elements(256, 256).sphere(5.0, material="terminator",
@@ -1800,6 +1827,30 @@ def main():
         if name == "twin":
             check(bool(((i_k >= 0) <= (i_k < twin.num_triangles)).all()),
                   "coincident copies: the lowest index wins")
+        # the epilogue variants on the same rays, each against its plain
+        # version, at its script's ray block and at the two other
+        # rays-a-thread values: every instantiation
+        v_mism, v_launch = {}, 0
+        for vname in IV.VARIANTS:
+            rb0 = 256 if vname in IV.MICRO_VARIANTS else 64
+            t_p, i_p = IV.nearest_hit_variant_torch(eo, ed, *eargs,
+                                                    variant=vname)
+            for rb in (rb0, 32, 128 if rb0 == 64 else 64):
+                t_k, i_k = IV.nearest_hit_variant_cuda(
+                    eo, ed, *eargs, variant=vname, ray_block=rb)
+                torch.cuda.synchronize()
+                v_launch += 1
+                v_mism[(vname, rb)] = (
+                    int((i_k != i_p).sum())
+                    + int((t_k.view(torch.int32)
+                           != t_p.view(torch.int32)).sum()))
+        bad = {f"{n}@{rb}": m for (n, rb), m in v_mism.items() if m}
+        line(f"8 edge rays {name} variants", rays=EDGE_RAYS,
+             variants=len(IV.VARIANTS), launches=v_launch,
+             hits=int((i_p >= 0).sum()),
+             mismatches=sum(v_mism.values()), bad=repr(bad))
+        check(not bad, f"edge rays on {name}: every variant kernel bitwise "
+              "equal to its plain version")
 
     # ---- 9. where the device time goes (torch.profiler, warm traces) -----
     for name, src, els in (("config1", cfg1_src(BENCH_RAYS), cfg1_els),
@@ -2012,7 +2063,10 @@ def main():
         v_err = float((t_k[fin] - t_p[fin]).abs().max())
         line(f"18 variant {name}", script=("micro_variants" if micro
                                             else "epilogue_variants"),
-             ray_block=rb, rays=BENCH_RAYS, triangles=v_tris,
+             ray_block=rb, rays_per_thread=IV.rays_per_thread(rb),
+             split=IV.stage_split(rb, IV.VARIANTS[name].n_sub),
+             dyn_smem_bytes=IV.dyn_smem_bytes(IV.VARIANTS[name].n_sub, rb),
+             rays=BENCH_RAYS, triangles=v_tris,
              kernel_ms=r["ms"], tests_per_s=f"{r['tests_per_s']:.4e}",
              vs_base=f"{r['tests_per_s'] / v_base['tests_per_s']:.4f}",
              identical_to_base=r["identical"],
@@ -2037,7 +2091,10 @@ def main():
              "launches": v_launches[name], "max_abs_err": v_err,
              "ms": r["ms"], "plain_ms": v_plain_ms, "bound_ms": v_bound_ms,
              "bound_by": v_bound_by, "share_of_bound": v_bound_ms / r["ms"],
-             "library_ms": None, "ray_block": rb, "rays": BENCH_RAYS,
+             "library_ms": None, "ray_block": rb,
+             "rays_per_thread": IV.rays_per_thread(rb),
+             "split": IV.stage_split(rb, IV.VARIANTS[name].n_sub),
+             "rays": BENCH_RAYS,
              "plain_rays": CMP_RAYS, "triangles": v_tris})
     del t_b1, i_b1, vo, vd, v_inputs
 

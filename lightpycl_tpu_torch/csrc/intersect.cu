@@ -117,9 +117,11 @@
 // So no pair that the exact path accepts as a hit is ever skipped, and
 // the reported (t, tri) are those of the exact sequence, bit for bit.
 // tests/test_torch_intersect_reject.py mirrors the test in plain torch.
+// The test, the record transform with its margin, the ray's moment, the
+// constants and the cp.async helpers live in nearest_hit_common.cuh, which
+// csrc/intersect_variants.cu shares.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "nearest_hit_common.cuh"
 
 #ifndef LPCL_RAY_BLOCK
 #define LPCL_RAY_BLOCK 256
@@ -136,24 +138,10 @@ constexpr int kChunksPerTile = LPCL_TRI_TILE / kChunk;
 constexpr int kTV = 2;  // triangles tested between two votes
 static_assert(kTV * kRPT <= 32, "one 32-bit keep mask per step");
 
-struct __align__(16) Rows {
-  float4 u, v, w;  // a triangle's unit-transform rows
-};
-// (a x c, Qa.x) (Qa.y, Qa.z, (b x c).xy) ((b x c).z, Qb) (c.xyz, M), with
-// Qa = a_w c - c_w a, Qb = b_w c - c_w b and M the pair margin for the
-// CTA's rays
-struct __align__(16) Record {
-  float4 r0, r1, r2, r3;
-};
-
 // two row buffers, two record buffers, the warps' ray scales
 constexpr int kSmemBytes =
     2 * kChunk * static_cast<int>(sizeof(Rows) + sizeof(Record)) +
     kWarps * static_cast<int>(sizeof(float2));
-
-constexpr float kEta = 0x1p-60f;
-constexpr float kRange = 0x1p30f;
-constexpr float kEbUp = 0x1.004p0f;  // 1 + 2^-10
 
 static_assert(LPCL_RAY_BLOCK % (32 * kRPT) == 0,
               "RAY_BLOCK must be whole warps of kRPT rays");
@@ -161,19 +149,6 @@ static_assert(LPCL_TRI_TILE % kChunk == 0 && kChunk % 32 == 0,
               "TRI_TILE must be whole chunks, a chunk whole warps");
 static_assert(kSmemBytes <= 48 * 1024,
               "chunk buffers exceed the static shared-memory limit");
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // The first chunk after `c` whose tile the mask keeps (every chunk without
 // a mask); n_chunks when none is left. Block-uniform.
@@ -187,12 +162,6 @@ __device__ __forceinline__ int next_chunk(int c, int n_chunks,
     c = (tile + 1) * kChunksPerTile;
   }
   return n_chunks;
-}
-
-// a x c and a_w c - c_w a, each component one product and one fma
-__device__ __forceinline__ float cross_term(float p, float q, float r,
-                                            float s) {
-  return __fmaf_rn(p, q, -(r * s));
 }
 
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
@@ -232,13 +201,9 @@ nearest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
       dy[j] = d[3 * ray + 1];
       dz[j] = d[3 * ray + 2];
     }
-    const bool in_range = (fabsf(ox) <= kRange) & (fabsf(oy) <= kRange) &
-                          (fabsf(oz) <= kRange) & (fabsf(dx[j]) <= kRange) &
-                          (fabsf(dy[j]) <= kRange) & (fabsf(dz[j]) <= kRange);
     // the ray's moment o x d
-    lx[j] = in_range ? cross_term(oy, dz[j], oz, dy[j]) : CUDART_NAN_F;
-    ly[j] = in_range ? cross_term(oz, dx[j], ox, dz[j]) : CUDART_NAN_F;
-    lz[j] = in_range ? cross_term(ox, dy[j], oy, dx[j]) : CUDART_NAN_F;
+    const bool in_range =
+        ray_moment(ox, oy, oz, dx[j], dy[j], dz[j], lx[j], ly[j], lz[j]);
     if (in_range) {
       mo_max = fmaxf(mo_max, fmaxf(fabsf(ox), fmaxf(fabsf(oy), fabsf(oz))));
       md_max = fmaxf(md_max,
@@ -280,36 +245,8 @@ nearest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
     const Rows* src = s_rows + slot * kChunk;
     Record* dst = s_rec + slot * kChunk;
     for (int k = threadIdx.x; k < n; k += kThreads) {
-      const float4 a = src[k].u, b = src[k].v, c4 = src[k].w;
-      const float la = fabsf(a.x) + fabsf(a.y) + fabsf(a.z);
-      const float lb = fabsf(b.x) + fabsf(b.y) + fabsf(b.z);
-      const float lc = fabsf(c4.x) + fabsf(c4.y) + fabsf(c4.z);
-      const float l_ab = fmaxf(la, lb);
-      const float b_ab = fmaxf(fabsf(a.w), fabsf(b.w));
-      const bool in_range = (la <= kRange) & (lb <= kRange) &
-                            (lc <= kRange) & (fabsf(a.w) <= kRange) &
-                            (fabsf(b.w) <= kRange) & (fabsf(c4.w) <= kRange);
-      const float alpha = delta * ((l_ab + l_ab) * lc);
-      const float beta =
-          delta * ((b_ab * lc + fabsf(c4.w) * l_ab) + lc) + eb * lc;
-      Record r;
-      r.r0 = make_float4(cross_term(a.y, c4.z, a.z, c4.y),
-                         cross_term(a.z, c4.x, a.x, c4.z),
-                         cross_term(a.x, c4.y, a.y, c4.x),
-                         cross_term(a.w, c4.x, c4.w, a.x));
-      r.r1 = make_float4(cross_term(a.w, c4.y, c4.w, a.y),
-                         cross_term(a.w, c4.z, c4.w, a.z),
-                         cross_term(b.y, c4.z, b.z, c4.y),
-                         cross_term(b.z, c4.x, b.x, c4.z));
-      r.r2 = make_float4(cross_term(b.x, c4.y, b.y, c4.x),
-                         cross_term(b.w, c4.x, c4.w, b.x),
-                         cross_term(b.w, c4.y, c4.w, b.y),
-                         cross_term(b.w, c4.z, c4.w, b.z));
-      r.r3 = make_float4(
-          c4.x, c4.y, c4.z,
-          in_range ? __fmaf_rn(md_blk, __fmaf_rn(mo_blk, alpha, beta), kEta)
-                   : CUDART_INF_F);
-      dst[k] = r;
+      dst[k] = plucker_record(src[k].u, src[k].v, src[k].w, mo_blk, md_blk,
+                              delta, eb);
     }
   };
 
@@ -361,18 +298,8 @@ nearest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
 #pragma unroll
         for (int j = 0; j < kRPT; ++j) {
           // fused evaluation: decides only whether the pair is skipped
-          const float U = __fmaf_rn(r.r0.x, lx[j], __fmaf_rn(r.r0.y, ly[j],
-                          __fmaf_rn(r.r0.z, lz[j], __fmaf_rn(r.r0.w, dx[j],
-                          __fmaf_rn(r.r1.x, dy[j], r.r1.y * dz[j])))));
-          const float V = __fmaf_rn(r.r1.z, lx[j], __fmaf_rn(r.r1.w, ly[j],
-                          __fmaf_rn(r.r2.x, lz[j], __fmaf_rn(r.r2.y, dx[j],
-                          __fmaf_rn(r.r2.z, dy[j], r.r2.w * dz[j])))));
-          const float DW = __fmaf_rn(r.r3.x, dx[j],
-                           __fmaf_rn(r.r3.y, dy[j], r.r3.z * dz[j]));
-          const float W = (DW - U) - V;
-          const float lo = fminf(U, fminf(V, W));
-          const float hi = fmaxf(U, fmaxf(V, W));
-          const bool skip = (lo < -r.r3.w) & (hi > r.r3.w);
+          const bool skip =
+              reject_pair(r, lx[j], ly[j], lz[j], dx[j], dy[j], dz[j]);
           keep |= skip ? 0u : (1u << (t * kRPT + j));
         }
       }

@@ -4,8 +4,9 @@ Each kernel source in `csrc/` is compiled with nvcc into a shared library
 with a plain C interface, loaded with ctypes. The build runs at first use,
 from the package's own sources only, into `lightpycl_tpu_torch/build/`
 (listed in .gitignore); the library's file name carries a hash of the
-source and the flags, so an edited source or flag rebuilds and an unchanged
-one is reused. Nothing here runs at import time.
+source, of every header in `csrc/` (`*.cuh`) and of the flags, so an edited
+source, header or flag rebuilds and an unchanged one is reused. Nothing
+here runs at import time.
 
 Flags: sm_90a (Hopper), no --use_fast_math (IEEE division), and
 -fmad=false, so each * and + stays a separately rounded operation and the
@@ -51,8 +52,11 @@ def build_command(source: str, defines: dict, out: Path,
 
 
 def library_path(source: str, defines: dict) -> Path:
-    """Where the library for this source and these flags lives."""
+    """Where the library for this source, the headers beside it and these
+    flags lives."""
     h = hashlib.sha256((CSRC_DIR / source).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(build_command(source, defines, Path("x"))).encode())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 

@@ -11,7 +11,13 @@ timed against each other (variant_bench.py).
 
 * `nearest_hit_variant_cuda` launches csrc/intersect_variants.cu on CUDA
   tensors (and only on them) and counts its launches per variant in
-  `nearest_hit_variant_cuda.launches`.
+  `nearest_hit_variant_cuda.launches`. The kernel runs csrc/intersect.cu's
+  design (the division-free reject test before the variant's exact lines,
+  rays blocked in registers, cp.async stages of `n_sub` x 32 triangles);
+  the dispatch picks its rays a thread from `ray_block`
+  (`rays_per_thread`), how many warp slices share a stage's tiles
+  (`stage_split`), and passes the dynamic shared memory it needs
+  (`dyn_smem_bytes`).
 * `nearest_hit_variant_torch` is the same function in plain torch, in the
   kernel's operation order, so the two agree bit for bit. The CPU uses it.
 
@@ -33,13 +39,17 @@ import numpy as np
 import torch
 
 from lightpycl_tpu_torch.ops import _build
-from lightpycl_tpu_torch.ops.intersect import _check, _thresholds
+from lightpycl_tpu_torch.ops.intersect import (REJECT_DELTA, _check,
+                                              _thresholds)
 
 _SOURCE = "intersect_variants.cu"
 _INF = float("inf")
 _DENOMS = {"guard": 0, "recip": 1, "ieee": 2}
 # the guard's threshold as the float32 the kernel compares with
 _TINY = float(np.float32(1e-30))
+# the kernel's layout (csrc/intersect_variants.cu): triangles a tile, bytes
+# of a Plücker record, warps a CTA at most
+_TILE, _RECORD_BYTES, _MAX_WARPS = 32, 64, 32
 
 
 class Variant(NamedTuple):
@@ -73,15 +83,70 @@ MICRO_VARIANTS = ("base", "recip", "ieee", "2tile", "2t_ieee", "4t_ieee",
 EPILOGUE_VARIANTS = ("tuned", "notmax", "min2", "min2_notmax")
 
 
+def rays_per_thread(ray_block: int) -> int:
+    """The kernel's rays a thread at `ray_block` rays a CTA: 4 where it
+    divides by 128, else 2 where it divides by 64, else 1."""
+    return 4 if ray_block % 128 == 0 else 2 if ray_block % 64 == 0 else 1
+
+
+def stage_split(ray_block: int, n_sub: int) -> int:
+    """Warp slices that share each stage's `n_sub` tiles: 4 (at most one a
+    tile) where the ray block is one warp of threads, so that an SM that
+    holds few CTAs still holds four warps of each, else 1."""
+    if ray_block // rays_per_thread(ray_block) != 32:
+        return 1
+    return min(4, n_sub)
+
+
+def dyn_smem_bytes(n_sub: int, ray_block: int) -> int:
+    """A CTA's dynamic shared memory: two record buffers of a stage of
+    n_sub x 32 triangles, the warps' ray scales, the (t, tri) accumulator
+    of its rays in each warp slice
+    (csrc/intersect_variants.cu::variant_smem_bytes)."""
+    return (2 * n_sub * _TILE * _RECORD_BYTES + _MAX_WARPS * 8
+            + stage_split(ray_block, n_sub) * ray_block * 8)
+
+
+def _check_ray_block(ray_block: int):
+    if ray_block % 32 or not 32 <= ray_block <= 1024:
+        raise ValueError(f"ray_block {ray_block}: a multiple of 32 in "
+                         "[32, 1024]")
+
+
 def load_kernel() -> ctypes.CDLL:
     """Build (once) and load the variants' kernel library."""
     lib = _build.load(_SOURCE)
     fn = lib.lpcl_nearest_hit_variant
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, i, p, p, p, i, i, i, i, i, i, i, f, f, f, f, p, p,
-                   p]
+    fn.argtypes = [p, p, i, p, p, p, i, i, i, i, i, i, i, i, i, i, f, f, f,
+                   f, f, p, p, p]
     fn.restype = ctypes.c_int
+    res = lib.lpcl_nearest_hit_variant_resources
+    res.argtypes = [i] * 8 + [ctypes.POINTER(i)] * 6
+    res.restype = ctypes.c_int
     return lib
+
+
+def kernel_resources(variant: str, ray_block: int) -> dict:
+    """One instantiation's compiled resources at `ray_block` (on the
+    card): registers, static and dynamic shared memory, local (spill)
+    bytes, threads and resident CTAs an SM, with its rays a thread and
+    warp slices. Raises on a CUDA error."""
+    v = _variant(variant)
+    _check_ray_block(ray_block)
+    out = [ctypes.c_int() for _ in range(6)]
+    err = load_kernel().lpcl_nearest_hit_variant_resources(
+        _DENOMS[v.denom], int(v.notmax), int(v.min2), v.n_sub, int(v.reg),
+        ray_block, rays_per_thread(ray_block),
+        stage_split(ray_block, v.n_sub), *map(ctypes.byref, out))
+    if err != 0:
+        raise RuntimeError(f"lpcl_nearest_hit_variant_resources({variant}) "
+                           f"failed: cudaError {err}")
+    keys = ("registers", "static_smem_bytes", "local_bytes", "threads",
+            "dyn_smem_bytes", "ctas_per_sm")
+    return dict(zip(keys, (x.value for x in out)),
+                rays_per_thread=rays_per_thread(ray_block),
+                split=stage_split(ray_block, v.n_sub))
 
 
 def _variant(name: str) -> Variant:
@@ -94,15 +159,14 @@ def _variant(name: str) -> Variant:
 def nearest_hit_variant_cuda(o, d, wu, wv, ww, eps, eps_b, t_max,
                              variant: str = "base", ray_block: int = 256):
     """Launch one variant's CUDA kernel. o, d (C, 3) f32; wu, wv, ww (T, 4)
-    f32; all CUDA, contiguous. `ray_block` rays (threads) a CTA, a multiple
-    of 32 up to 1024. Raises on anything else."""
+    f32; all CUDA, contiguous. `ray_block` rays a CTA, a multiple of 32 up
+    to 1024 (`rays_per_thread(ray_block)` of them a thread). Raises on
+    anything else, and on any launch or shared-memory attribute error."""
     v = _variant(variant)
     if o.device.type != "cuda":
         raise ValueError(f"nearest_hit_variant_cuda needs CUDA tensors, got "
                          f"{o.device}")
-    if ray_block % 32 or not 32 <= ray_block <= 1024:
-        raise ValueError(f"ray_block {ray_block}: a multiple of 32 in "
-                         "[32, 1024]")
+    _check_ray_block(ray_block)
     dev = o.device
     C, T = o.shape[0], wu.shape[0]
     _check("o", o, torch.float32, (C, 3), dev)
@@ -123,8 +187,10 @@ def nearest_hit_variant_cuda(o, d, wu, wv, ww, eps, eps_b, t_max,
         err = lib.lpcl_nearest_hit_variant(
             o.data_ptr(), d.data_ptr(), C, wu.data_ptr(), wv.data_ptr(),
             ww.data_ptr(), T, _DENOMS[v.denom], int(v.notmax), int(v.min2),
-            v.n_sub, int(v.reg), ray_block, -neg_eps, neg_eps_b, one_eps_b,
-            t_max32, t.data_ptr(), tri.data_ptr(),
+            v.n_sub, int(v.reg), ray_block, rays_per_thread(ray_block),
+            stage_split(ray_block, v.n_sub),
+            dyn_smem_bytes(v.n_sub, ray_block), -neg_eps, neg_eps_b,
+            one_eps_b, t_max32, REJECT_DELTA, t.data_ptr(), tri.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lpcl_nearest_hit_variant({variant}) launch "

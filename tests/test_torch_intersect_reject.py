@@ -79,11 +79,11 @@ def ray_in_range(o, d):
             & (d.abs() <= RANGE).all(dim=1, keepdim=True))
 
 
-def block_scales(o, d):
+def block_scales(o, d, ray_block=PI.RAY_BLOCK):
     """(C, 1) m_o and m_d as the kernel takes them: the largest over the
-    in-range rays of each ray's CTA (RAY_BLOCK rays, the last one padded
+    in-range rays of each ray's CTA (`ray_block` rays, the last one padded
     with the kernel's dummy rays o = 0, d = (0, 0, 1))."""
-    C, R = o.shape[0], PI.RAY_BLOCK
+    C, R = o.shape[0], ray_block
     pad = -C % R
     op = torch.cat([o, torch.zeros((pad, 3))])
     dp = torch.cat([d, torch.tensor([[0.0, 0.0, 1.0]]).expand(pad, 3)])
@@ -119,9 +119,11 @@ def fused_values(o, d, wu, wv, ww):
     return U, V, (DW - U) - V
 
 
-def fused_skip(o, d, wu, wv, ww, eps_b=EPS_B, delta=PI.REJECT_DELTA):
+def fused_skip(o, d, wu, wv, ww, eps_b=EPS_B, delta=PI.REJECT_DELTA,
+               ray_block=PI.RAY_BLOCK):
     """(C, T) bool: the pairs the kernel skips, as the kernel decides (the
-    margin from each triangle's row scales and the CTA's ray scales)."""
+    margin from each triangle's row scales and the ray scales of CTAs of
+    `ray_block` rays)."""
     _, neg_eps_b, _, _ = PI._thresholds(EPS, eps_b, T_MAX)
     U, V, W = fused_values(o, d, wu, wv, ww)
     # per-triangle coefficients in the kernel's f32 order
@@ -136,7 +138,7 @@ def fused_skip(o, d, wu, wv, ww, eps_b=EPS_B, delta=PI.REJECT_DELTA):
     tri_in_range = ((la <= RANGE) & (lb <= RANGE) & (lc <= RANGE)
                     & (torch.stack([wu[:, 3], wv[:, 3], ww[:, 3]]).abs()
                        <= RANGE).all(dim=0))
-    m_o, m_d = block_scales(o, d)
+    m_o, m_d = block_scales(o, d, ray_block)
     M = fma(m_d, fma(m_o, alpha, beta), f32(torch.tensor(ETA)))
     M = torch.where(tri_in_range, M, float("inf"))
     lo = torch.minimum(U, torch.minimum(V, W))
