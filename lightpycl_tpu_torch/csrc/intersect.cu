@@ -117,8 +117,8 @@
 // So no pair that the exact path accepts as a hit is ever skipped, and
 // the reported (t, tri) are those of the exact sequence, bit for bit.
 // tests/test_torch_intersect_reject.py mirrors the test in plain torch.
-// The test, the record transform with its margin, the ray's moment, the
-// constants and the cp.async helpers live in nearest_hit_common.cuh, which
+// The record transform with its margin, the record layout, the constants
+// and the cp.async helpers live in nearest_hit_common.cuh, which
 // csrc/intersect_variants.cu shares.
 
 #include "nearest_hit_common.cuh"
@@ -201,9 +201,13 @@ nearest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
       dy[j] = d[3 * ray + 1];
       dz[j] = d[3 * ray + 2];
     }
+    const bool in_range = (fabsf(ox) <= kRange) & (fabsf(oy) <= kRange) &
+                          (fabsf(oz) <= kRange) & (fabsf(dx[j]) <= kRange) &
+                          (fabsf(dy[j]) <= kRange) & (fabsf(dz[j]) <= kRange);
     // the ray's moment o x d
-    const bool in_range =
-        ray_moment(ox, oy, oz, dx[j], dy[j], dz[j], lx[j], ly[j], lz[j]);
+    lx[j] = in_range ? cross_term(oy, dz[j], oz, dy[j]) : CUDART_NAN_F;
+    ly[j] = in_range ? cross_term(oz, dx[j], ox, dz[j]) : CUDART_NAN_F;
+    lz[j] = in_range ? cross_term(ox, dy[j], oy, dx[j]) : CUDART_NAN_F;
     if (in_range) {
       mo_max = fmaxf(mo_max, fmaxf(fabsf(ox), fmaxf(fabsf(oy), fabsf(oz))));
       md_max = fmaxf(md_max,
@@ -298,8 +302,18 @@ nearest_hit_kernel(const float* __restrict__ o, const float* __restrict__ d,
 #pragma unroll
         for (int j = 0; j < kRPT; ++j) {
           // fused evaluation: decides only whether the pair is skipped
-          const bool skip =
-              reject_pair(r, lx[j], ly[j], lz[j], dx[j], dy[j], dz[j]);
+          const float U = __fmaf_rn(r.r0.x, lx[j], __fmaf_rn(r.r0.y, ly[j],
+                          __fmaf_rn(r.r0.z, lz[j], __fmaf_rn(r.r0.w, dx[j],
+                          __fmaf_rn(r.r1.x, dy[j], r.r1.y * dz[j])))));
+          const float V = __fmaf_rn(r.r1.z, lx[j], __fmaf_rn(r.r1.w, ly[j],
+                          __fmaf_rn(r.r2.x, lz[j], __fmaf_rn(r.r2.y, dx[j],
+                          __fmaf_rn(r.r2.z, dy[j], r.r2.w * dz[j])))));
+          const float DW = __fmaf_rn(r.r3.x, dx[j],
+                           __fmaf_rn(r.r3.y, dy[j], r.r3.z * dz[j]));
+          const float W = (DW - U) - V;
+          const float lo = fminf(U, fminf(V, W));
+          const float hi = fmaxf(U, fmaxf(V, W));
+          const bool skip = (lo < -r.r3.w) & (hi > r.r3.w);
           keep |= skip ? 0u : (1u << (t * kRPT + j));
         }
       }

@@ -16,8 +16,8 @@
 //   when there is none.
 //
 // What bounds it on the card: FP32 issue, as intersect.cu. Every pair needs
-// the division-free reject test of nearest_hit_common.cuh, 29 flops (12
-// FMAs, 3 multiplies, 2 adds), so at 67 TFLOP/s 524,288 rays x 130,560
+// intersect.cu's division-free reject test (reject_pair below), 29 flops
+// (12 FMAs, 3 multiplies, 2 adds), so at 67 TFLOP/s 524,288 rays x 130,560
 // triangles take at least 29.63 ms. The exact lines (39 flops with an IEEE
 // divide and its slow-path check, ~55-60 instructions a pair) run only for
 // the pairs the test keeps.
@@ -106,8 +106,8 @@
 // Built as intersect.cu is: sm_90a, no fast math and -fmad=false, so each *
 // and + in the exact lines is a separately rounded IEEE operation in the
 // order written and the division is IEEE; __fmaf_rn appears only in the
-// reject test and the records and moments it reads
-// (nearest_hit_common.cuh), which decide only whether a pair is skipped.
+// reject test and the records and moments it reads, which decide only
+// whether a pair is skipped.
 
 #include "nearest_hit_common.cuh"
 
@@ -115,6 +115,43 @@ constexpr int kTile = 32;      // triangles a tile (NSUB tiles a stage)
 constexpr int kTV = 2;         // triangles tested between two votes
 constexpr int kMaxWarps = 32;  // 1024 threads
 enum Denom { kGuard = 0, kRecip = 1, kIeee = 2 };
+
+// intersect.cu's lines, as functions:
+// the ray's moment o x d into (lx, ly, lz). A ray with a component beyond
+// kRange gets a NaN moment, so that every fused value of the ray is NaN and
+// none of its pairs is skipped; returns whether it is in range.
+__device__ __forceinline__ bool ray_moment(float ox, float oy, float oz,
+                                           float dx, float dy, float dz,
+                                           float& lx, float& ly, float& lz) {
+  const bool in_range = (fabsf(ox) <= kRange) & (fabsf(oy) <= kRange) &
+                        (fabsf(oz) <= kRange) & (fabsf(dx) <= kRange) &
+                        (fabsf(dy) <= kRange) & (fabsf(dz) <= kRange);
+  lx = in_range ? cross_term(oy, dz, oz, dy) : CUDART_NAN_F;
+  ly = in_range ? cross_term(oz, dx, ox, dz) : CUDART_NAN_F;
+  lz = in_range ? cross_term(ox, dy, oy, dx) : CUDART_NAN_F;
+  return in_range;
+}
+
+// intersect.cu's reject test of one pair: true when the pair may be
+// skipped, i.e. the fused U', V', W' = DW - U' - V' straddle the record's
+// margin (min < -M and max > M). It decides only whether the exact lines
+// run.
+__device__ __forceinline__ bool reject_pair(const Record& r, float lx,
+                                            float ly, float lz, float dx,
+                                            float dy, float dz) {
+  const float U = __fmaf_rn(r.r0.x, lx, __fmaf_rn(r.r0.y, ly,
+                  __fmaf_rn(r.r0.z, lz, __fmaf_rn(r.r0.w, dx,
+                  __fmaf_rn(r.r1.x, dy, r.r1.y * dz)))));
+  const float V = __fmaf_rn(r.r1.z, lx, __fmaf_rn(r.r1.w, ly,
+                  __fmaf_rn(r.r2.x, lz, __fmaf_rn(r.r2.y, dx,
+                  __fmaf_rn(r.r2.z, dy, r.r2.w * dz)))));
+  const float DW = __fmaf_rn(r.r3.x, dx,
+                   __fmaf_rn(r.r3.y, dy, r.r3.z * dz));
+  const float W = (DW - U) - V;
+  const float lo = fminf(U, fminf(V, W));
+  const float hi = fmaxf(U, fmaxf(V, W));
+  return (lo < -r.r3.w) & (hi > r.r3.w);
+}
 
 // A CTA's dynamic shared memory: two record buffers of a stage, the warps'
 // ray scales, and the accumulator, (t, tri) of each of its rays in each of

@@ -11,9 +11,12 @@
 // tests/test_torch_intersect_variants_reject.py mirror the test in plain
 // torch.
 //
-// Everything here is __forceinline__ and does what the kernels did inline:
+// Everything here is __forceinline__ and does what intersect.cu did inline:
 // __fmaf_rn appears only in the reject test and in the records and moments
-// it reads, never in the exact lines that decide (t, tri).
+// it reads, never in the exact lines that decide (t, tri). The ray's moment
+// and the test itself stay written out in intersect.cu's kernel body (as
+// calls they move its instruction schedule); intersect_variants.cu has the
+// same lines as functions.
 
 #pragma once
 
@@ -51,21 +54,6 @@ __device__ __forceinline__ void cp_async_wait_all() {
 __device__ __forceinline__ float cross_term(float p, float q, float r,
                                             float s) {
   return __fmaf_rn(p, q, -(r * s));
-}
-
-// The ray's moment o x d into (lx, ly, lz). A ray with a component beyond
-// kRange gets a NaN moment, so that every fused value of the ray is NaN and
-// none of its pairs is skipped; returns whether it is in range.
-__device__ __forceinline__ bool ray_moment(float ox, float oy, float oz,
-                                           float dx, float dy, float dz,
-                                           float& lx, float& ly, float& lz) {
-  const bool in_range = (fabsf(ox) <= kRange) & (fabsf(oy) <= kRange) &
-                        (fabsf(oz) <= kRange) & (fabsf(dx) <= kRange) &
-                        (fabsf(dy) <= kRange) & (fabsf(dz) <= kRange);
-  lx = in_range ? cross_term(oy, dz, oz, dy) : CUDART_NAN_F;
-  ly = in_range ? cross_term(oz, dx, ox, dz) : CUDART_NAN_F;
-  lz = in_range ? cross_term(ox, dy, oy, dx) : CUDART_NAN_F;
-  return in_range;
 }
 
 // A triangle's rows (a, b, c4 = rows u, v, w) -> its record, with the margin
@@ -107,24 +95,4 @@ __device__ __forceinline__ Record plucker_record(float4 a, float4 b,
       in_range ? __fmaf_rn(md_blk, __fmaf_rn(mo_blk, alpha, beta), kEta)
                : CUDART_INF_F);
   return r;
-}
-
-// The reject test of one pair: true when the pair may be skipped, i.e. the
-// fused U', V', W' = DW - U' - V' straddle the record's margin (min < -M
-// and max > M). It decides only whether the exact lines run.
-__device__ __forceinline__ bool reject_pair(const Record& r, float lx,
-                                            float ly, float lz, float dx,
-                                            float dy, float dz) {
-  const float U = __fmaf_rn(r.r0.x, lx, __fmaf_rn(r.r0.y, ly,
-                  __fmaf_rn(r.r0.z, lz, __fmaf_rn(r.r0.w, dx,
-                  __fmaf_rn(r.r1.x, dy, r.r1.y * dz)))));
-  const float V = __fmaf_rn(r.r1.z, lx, __fmaf_rn(r.r1.w, ly,
-                  __fmaf_rn(r.r2.x, lz, __fmaf_rn(r.r2.y, dx,
-                  __fmaf_rn(r.r2.z, dy, r.r2.w * dz)))));
-  const float DW = __fmaf_rn(r.r3.x, dx,
-                   __fmaf_rn(r.r3.y, dy, r.r3.z * dz));
-  const float W = (DW - U) - V;
-  const float lo = fminf(U, fminf(V, W));
-  const float hi = fmaxf(U, fmaxf(V, W));
-  return (lo < -r.r3.w) & (hi > r.r3.w);
 }
