@@ -165,7 +165,7 @@ class LaunchTap:
         self.PI.intersect.observer = None
 
 
-def hold_to_plain(PI, phase, bounce, launch, n_rays=CMP_RAYS):
+def plain_mismatch(PI, launch, n_rays=CMP_RAYS):
     """One launch of a main path, as a LaunchTap kept it, made again: the
     kernel with the launch's own cull mask on `n_rays` of its rays (whole
     ray blocks that hold a live ray, spread evenly over the launch) against
@@ -173,13 +173,13 @@ def hold_to_plain(PI, phase, bounce, launch, n_rays=CMP_RAYS):
     The mask never changes a live ray's result, so the plain version's
     culled path (a Python loop over (ray block, tile) pairs, minutes on
     2,056 tiles) is not needed. Dead slots are left out: the mask is built
-    from the live rays only."""
+    from the live rays only. Returns the comparison's numbers."""
     scene, o, d, cfg, alive, mask = launch
     RB, C, T = PI.RAY_BLOCK, o.shape[0], scene.wu.shape[0]
     n_rb = C // RB
-    check(n_rb > 0, f"phase {phase}: the launch holds a whole ray block")
+    check(n_rb > 0, "the launch holds a whole ray block")
     cand = torch.nonzero(alive[:n_rb * RB].view(n_rb, RB).any(1))[:, 0]
-    check(len(cand) > 0, f"phase {phase} launch {bounce}: live rays")
+    check(len(cand) > 0, "the launch holds live rays")
     n_sel = min(n_rays // RB, len(cand))
     sel = cand[torch.arange(n_sel, device=o.device) * (len(cand) // n_sel)]
 
@@ -200,11 +200,19 @@ def hold_to_plain(PI, phase, bounce, launch, n_rays=CMP_RAYS):
                           & live).sum())
     kept = (1.0 if mk is None else kept_pairs(
         mk, n_sel * RB, T, RB, PI.TRI_TILE) / (n_sel * RB * T))
-    line(f"{phase} launch {bounce} vs plain", rays=n_sel * RB, of_rays=C,
-         triangles=T, culled=mk is not None, pairs_kept=f"{kept:.5f}",
-         live=int(live.sum()), hits=int(((i_k >= 0) & live).sum()),
-         tri_mismatch=tri_mismatch, t_bit_mismatch=t_bit_mismatch)
-    check(tri_mismatch == 0 and t_bit_mismatch == 0,
+    return dict(rays=n_sel * RB, of_rays=C, triangles=T,
+                culled=mk is not None, pairs_kept=f"{kept:.5f}",
+                live=int(live.sum()), hits=int(((i_k >= 0) & live).sum()),
+                tri_mismatch=tri_mismatch, t_bit_mismatch=t_bit_mismatch)
+
+
+def hold_to_plain(PI, phase, bounce, launch, n_rays=CMP_RAYS):
+    """`plain_mismatch` of a tapped launch, printed and checked: the kernel
+    on the main path's own rays and mask bitwise equal to the plain
+    version."""
+    r = plain_mismatch(PI, launch, n_rays)
+    line(f"{phase} launch {bounce} vs plain", **r)
+    check(r["tri_mismatch"] == 0 and r["t_bit_mismatch"] == 0,
           f"phase {phase} launch {bounce}: the kernel on the main path's own "
           "rays and mask bitwise equal to the plain version")
 
@@ -254,6 +262,20 @@ def profile_trace(fn, top=3, span=None):
     if span is not None:
         out["span_ms"] = span_ms
     return out
+
+
+def cfg4_elements(P):
+    """BASELINE config 4's scene (benchmarks/baseline_configs.py:117): a
+    360 x 180 paraboloid dish and a dome, 137,304 triangles."""
+    oe4 = P.optical_elements(360, 180)
+    return [oe4.parabolic_mirror(focus=1.0, diameter=4.0, reflectivity=0.95),
+            P.optical_elements(128, 32).hemisphere(radius=100.0,
+                                                   name="dome")]
+
+
+def cfg4_source(P):
+    return P.CollimatedSource(center=(0, 0, 5), direction=(0, 0, -1),
+                              diameter=3.5, power=1.0)
 
 
 def same_batched(a, b):
@@ -1083,8 +1105,8 @@ def oracle_phases(P, PI):
 
 
 # ---- 24. the example scripts through the port -----------------------------
-# the one that needs a module the port lacks: parallel (ROADMAP A 7)
-EXAMPLES_NOT_PORTED = {"example_multichip.py": "parallel"}
+# scripts that need a module the port lacks (none since parallel/)
+EXAMPLES_NOT_PORTED = {}
 # the scripts that run only the differentiable path (diff.py), which never
 # launches the nearest-hit kernel
 DIFF_ONLY = {"example_bestform.py", "example_lens_design.py"}
@@ -1111,14 +1133,21 @@ def grad(f, argnums=0):
     vg = value_and_grad(f, argnums)
     return lambda *args: vg(*args)[1]
 """
-# Five scripts call jax themselves: two for an analytic cross-check of a
+# Six scripts call jax themselves: two for an analytic cross-check of a
 # physics function on a handful of numbers, three (the lens-design,
 # tolerancing and best-form demos) for their design loops' autodiff and
-# optimizer. The card's machine has no jax, so their copies also get these
-# lines in torch (the same functions of the port, on the same
-# numbers; optax.adam -> torch.optim.Adam, bestform's jax.vmap over focus
-# planes -> a loop)
+# optimizer, and the multichip demo to count devices (and to force the CPU
+# on request, which the card's copy drops). The card's machine has no jax,
+# so their copies also get these lines in torch (the same functions of the
+# port, on the same numbers; optax.adam -> torch.optim.Adam, bestform's
+# jax.vmap over focus planes -> a loop; jax.devices() -> the cards)
 JAX_LINES = {
+    "example_multichip.py": [
+        ('if os.environ.get("LPCL_FORCE_CPU"):\n    import jax\n\n'
+         '    jax.config.update("jax_platforms", "cpu")\n\nimport jax\n'
+         'import numpy as np\n', "import numpy as np\nimport torch\n"),
+        ("n_avail = len(jax.devices())",
+         "n_avail = torch.cuda.device_count()")],
     "example_newtonian.py": [
         ("import jax\nimport jax.numpy as jnp\n", "import torch\n"),
         ("arr = lambda x: jnp.atleast_1d(jnp.asarray(x, jnp.float32))",
@@ -1188,8 +1217,7 @@ def example_copy(src: str, name: str):
 
 
 def example_phases(P, PI):
-    """Phase 24: every example script that needs no multi-device module,
-    copied with its import root swapped, each in its own python3 process
+    """Phase 24: every example script, copied with its import root swapped, each in its own python3 process
     on the card at its own default size (LPCL_FORCE_CPU unset), four at a
     time. Returns the (brute, culled) kernel launches of the scripts."""
     import glob
@@ -1199,7 +1227,7 @@ def example_phases(P, PI):
     names = sorted(os.path.basename(f) for f in glob.glob(
         os.path.join(repo, "examples", "example_*.py")))
     names = [n for n in names if n not in EXAMPLES_NOT_PORTED]
-    check(len(names) == 30, f"30 example scripts to run, found {len(names)}")
+    check(len(names) == 31, f"31 example scripts to run, found {len(names)}")
     tmpdir = tempfile.TemporaryDirectory(prefix="lpcl_examples_")
     tmp = tmpdir.name
     env = dict(os.environ)
@@ -1254,7 +1282,8 @@ def example_phases(P, PI):
     line("24 examples", scripts=len(rows), workers=EXAMPLE_WORKERS,
          phase_s=f"{phase_s:.1f}", launches=brute, cull_launches=cull,
          not_run=",".join(f"{n}({m})"
-                          for n, m in sorted(EXAMPLES_NOT_PORTED.items())))
+                          for n, m in sorted(EXAMPLES_NOT_PORTED.items()))
+         or "none")
     failed = [r["name"] for r in rows if r["rc"] != 0]
     check(not failed, f"example scripts exited non-zero: {failed}")
     check(all((r["brute"] + r["cull"] > 0) != (r["name"] in DIFF_ONLY)
@@ -1513,6 +1542,318 @@ def design_phases(P, PI):
           "phase 25d: the bare window transmits the two-surface series")
     check(brute + cull > 0, "phase 25d: the trace launched the kernel")
     line("25 design", phase_s=f"{time.perf_counter() - t_phase:.1f}")
+    return brute, cull
+
+# ---- 26. the sharded modes (parallel/) on the card -------------------------
+CFG5_RAYS = 1 << 17     # examples/example_multichip.py (BASELINE config 5)
+CFG5_ITERS = 6
+# config 4's mesh and source with 1,048,576 rays, not its 4,000,000: ranks
+# that share one card sum about 30 hit-attribute floats a ray a bounce on
+# the host (gloo), where NCCL on one card a rank would not
+MESH2D_RAYS = 1 << 20
+MESH2D_SEED = 4
+MESH2D_SHAPE = {2: (2, 1), 4: (2, 2)}   # ranks -> ("tris", "rays")
+RANK_TIMEOUT_S = 200
+
+
+def cfg5_scene(P):
+    """examples/example_multichip.py's scene and source."""
+    oe = P.optical_elements(n_segments=96, n_radial=24)
+    els = [oe.parabolic_mirror(0.5, 2.0, reflectivity=0.95),
+           oe.hemisphere(20.0, name="dome")]
+    src = P.light_source(center=(0, 0, 0.5), direction=(0, 0, -1),
+                         power=1.0, ray_count=CFG5_RAYS, seed=1)
+    return els, src
+
+
+def mesh2d_rays(P, S, n=MESH2D_RAYS):
+    """n rays of config 4's source, drawn on the card from a fixed seed (the
+    same on every rank)."""
+    o, d, p = cfg4_source(P).rays_on_device(
+        S.make_generator("cuda", MESH2D_SEED), n)
+    return P.RayBatch.from_arrays(o, d, p, device="cuda")
+
+
+def tapped(PI, fn):
+    """(fn()'s result, its wall in seconds, brute and culled launches, the
+    plain-version comparison of its first launch)."""
+    PI.nearest_hit_cuda.launches = PI.nearest_hit_cuda.cull_launches = 0
+    with LaunchTap(PI, (0,)) as tap:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cull = PI.nearest_hit_cuda.cull_launches
+    brute = PI.nearest_hit_cuda.launches - cull
+    return out, wall, brute, cull, plain_mismatch(PI, tap.kept[0])
+
+
+def rank_job(rank, world):
+    """What one spawned rank of phase 26b runs: config 5 in multichip mode,
+    then config 4's mesh in mesh2d mode on MESH2D_SHAPE[world], each with
+    its first launch held to the plain version. Returns plain values."""
+    import lightpycl_tpu_torch as P
+    from lightpycl_tpu_torch.ops import intersect as PI
+    from lightpycl_tpu_torch.parallel import mesh2d
+    from lightpycl_tpu_torch.tracer import step as S
+
+    out = {}
+    els, src = cfg5_scene(P)
+    tr = P.Tracer().set_elements(els)
+    tr.trace(src, trace_iterations=CFG5_ITERS, mode="multichip")  # first use
+    res, wall, brute, cull, plain = tapped(PI, lambda: tr.trace(
+        src, trace_iterations=CFG5_ITERS, mode="multichip"))
+    out["cfg5"] = dict(ledger=res.ledger, hist=res.hist, wall_s=wall,
+                       brute=brute, cull=cull, plain=plain)
+    mesh = mesh2d.make_mesh2d(*MESH2D_SHAPE[world])
+    tr4 = P.Tracer(P.TraceConfig(trace_iterations=2))
+    tr4.set_elements(cfg4_elements(P))
+    res, wall, brute, cull, plain = tapped(PI, lambda: tr4.trace(
+        None, rays=mesh2d_rays(P, S), mode="mesh2d", mesh=mesh))
+    out["mesh2d"] = dict(ledger=res.ledger, hist=res.hist, wall_s=wall,
+                         brute=brute, cull=cull, plain=plain,
+                         padded=tr4.scene.num_triangles_padded)
+    return out
+
+
+def nccl_job(rank, world):
+    """One all-reduce on a multi-rank NCCL group whose ranks share card 0:
+    NCCL must refuse it (and nothing may swap in another backend)."""
+    x = torch.ones(1, device="cuda")
+    torch.distributed.all_reduce(x)
+    torch.cuda.synchronize()
+    return float(x)
+
+
+def _rank_entry(rank, world, store, out_dir, backend, job):
+    import pickle
+    import traceback
+
+    from lightpycl_tpu_torch.parallel.distributed import init_distributed
+
+    torch.cuda.set_device(0)
+    path = f"{out_dir}/rank{rank}.pkl"
+    try:
+        init_distributed(f"file://{store}", num_processes=world,
+                         process_id=rank, backend=backend)
+        result = ("ok", job(rank, world))
+        torch.distributed.destroy_process_group()
+    except BaseException:  # reported to the parent, then re-raised
+        with open(path, "wb") as f:
+            pickle.dump(("error", traceback.format_exc()), f)
+        raise
+    with open(path, "wb") as f:
+        pickle.dump(result, f)
+
+
+def spawn_ranks(world, backend="gloo", job=rank_job,
+                timeout=RANK_TIMEOUT_S):
+    """`job` on `world` spawned ranks that share card 0 (over gloo: NCCL
+    refuses two ranks on one card). A rank that fails, or a launch past
+    `timeout`, kills every rank. Returns every rank's (status, result or
+    traceback) and the launch's wall."""
+    import pickle
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="lpcl_ranks_") as tmp:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_rank_entry,
+                             args=(r, world, f"{tmp}/store", tmp, backend,
+                                   job))
+                 for r in range(world)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        try:
+            while (any(p.is_alive() for p in procs)
+                   and not any(p.exitcode for p in procs)
+                   and time.perf_counter() - t0 < timeout):
+                time.sleep(0.1)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join(30)
+        wall = time.perf_counter() - t0
+        results = []
+        for r in range(world):
+            try:
+                with open(f"{tmp}/rank{r}.pkl", "rb") as f:
+                    results.append(pickle.load(f))
+            except OSError:
+                results.append(("missing", f"exit code {procs[r].exitcode}"))
+    return results, wall
+
+
+def gloo_ranks(world):
+    """spawn_ranks over gloo, every rank held to have returned its result
+    within the time limit."""
+    results, wall = spawn_ranks(world)
+    for r, (status, value) in enumerate(results):
+        if status != "ok":
+            print(f"[26 rank {r} of {world}] {value}", flush=True)
+    check(wall < RANK_TIMEOUT_S, f"phase 26: {world} ranks ended within "
+          f"{RANK_TIMEOUT_S} s")
+    check(all(s == "ok" for s, _ in results),
+          f"phase 26: all {world} ranks returned a result")
+    return [v for _, v in results], wall
+
+
+def multi_device_phases(P, PI, smi):
+    """Phase 26: the sharded modes. (a) In this process, on a one-rank NCCL
+    group: multichip trace, trace_batched and trace_spectral, and a (1, 1)
+    mesh2d trace, each bit for bit equal to device mode. (b) 2 and 4
+    spawned ranks on this card over gloo: config 5 in multichip mode
+    (measured within rel 1e-4 of the one-rank run) and config 4's mesh in
+    mesh2d mode at (2, 1) and (2, 2) (ledger within rel 1e-4, histogram
+    atol 1e-5 of device mode), every rank's first launch bitwise equal to
+    the plain version. (c) Two NCCL ranks on the card are refused. Returns
+    the (brute, culled) kernel launches of the sharded runs, the ranks'
+    included."""
+    import torch.distributed as dist
+
+    from lightpycl_tpu_torch.parallel import mesh2d, sharding
+    from lightpycl_tpu_torch.tracer import step as S
+
+    brute = cull = 0
+
+    def count(fn):
+        nonlocal brute, cull
+        out, b, c = counted(PI, fn)
+        brute, cull = brute + b, cull + c
+        return out
+
+    # ---- 26a. one process, a one-rank NCCL group on cuda:0 ---------------
+    ray_mesh = sharding.make_ray_mesh()
+    check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+          "phase 26a: a one-rank NCCL group")
+    oe2 = P.optical_elements(n_segments=128, n_radial=32)
+    cfg1_els = [oe2.parabolic_mirror(0.5, 2.0, reflectivity=0.98),
+                oe2.hemisphere(30.0, name="dome")]
+    cfg1_src = P.light_source(center=(0, 0, 0.5), direction=(0, 0, -1),
+                              power=1.0, ray_count=BENCH_RAYS, seed=7)
+
+    def both(name, fn, same_fn):
+        dev = fn("device")
+        sharded = count(lambda: fn("sharded"))
+        ok = same_fn(dev, sharded)
+        line(f"26a {name}", device_wall_s=dev.wall_time,
+             sharded_wall_s=sharded.wall_time,
+             measured=sharded.ledger["measured"], bit_equal=ok)
+        check(ok, f"phase 26a {name}: bit for bit equal to device mode")
+
+    both("multichip config1", lambda m: P.Tracer().trace(
+        cfg1_src, cfg1_els, trace_iterations=2,
+        mode="device" if m == "device" else "multichip"), same_trace)
+    both("multichip trace_batched config4", lambda m: P.Tracer(
+        P.TraceConfig(trace_iterations=4)).trace_batched(
+            cfg4_source(P), CFG4_BATCH, CFG4_BATCH,
+            elements=cfg4_elements(P),
+            mode="device" if m == "device" else "multichip"), same_batched)
+    o, d, p = P.CollimatedSource(center=(0, 0, -1.0), direction=(0, 0, 1),
+                                 diameter=0.6, ray_count=SPEC_RAYS,
+                                 power=1.0, seed=7).sample()
+    wls = np.linspace(0.40, 0.75, SPEC_W)
+    both("multichip trace_spectral phase19", lambda m: P.Tracer(
+        ).trace_spectral(None, wls, elements=hr_window(P),
+                         trace_iterations=SPEC_ITERS,
+                         rays=P.RayBatch.from_arrays(
+                             o, d, p, capacity=2 * SPEC_RAYS, device="cuda"),
+                         mode="device" if m == "device" else "multichip"),
+         same_spectral)
+    tr4 = P.Tracer(P.TraceConfig(trace_iterations=2))
+    tr4.set_elements(cfg4_elements(P))
+    batch4 = P.RayBatch.from_arrays(*cfg4_source(P).rays_on_device(
+        S.make_generator("cuda", 0, 0, 0), CFG4_BATCH), device="cuda")
+    both("mesh2d(1,1) config4 batch", lambda m: tr4.trace(
+        None, rays=batch4, mode="device") if m == "device" else tr4.trace(
+        None, rays=batch4, mode="mesh2d", mesh=mesh2d.make_mesh2d(1, 1)),
+        same_trace)
+    del batch4
+
+    # config 5 on the one-rank group: the runs of 26b are held to it
+    els5, src5 = cfg5_scene(P)
+    tr5 = P.Tracer().set_elements(els5)
+    one = count(lambda: tr5.trace(src5, trace_iterations=CFG5_ITERS,
+                                  mode="multichip", mesh=ray_mesh))
+    line("26a config5 1 rank nccl", wall_s=one.wall_time,
+         measured=one.ledger["measured"], card=repr(smi))
+    # device mode on 26b's mesh2d rays, to hold the sharded runs to
+    tr4 = P.Tracer(P.TraceConfig(trace_iterations=2))
+    tr4.set_elements(cfg4_elements(P))
+    dev2 = count(lambda: tr4.trace(None, rays=mesh2d_rays(P, S),
+                                   mode="device"))
+    line("26a mesh2d reference device", rays=MESH2D_RAYS,
+         wall_s=dev2.wall_time, measured=dev2.ledger["measured"],
+         padded_triangles=tr4.scene.num_triangles_padded)
+    dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # ---- 26b. 2 and 4 ranks spawned on this card over gloo ---------------
+    for world in (2, 4):
+        res, wall = gloo_ranks(world)
+        for rank, r in enumerate(res):
+            c5, m2 = r["cfg5"], r["mesh2d"]
+            brute += c5["brute"] + m2["brute"]
+            cull += c5["cull"] + m2["cull"]
+            rel = abs(c5["ledger"]["measured"] - one.ledger["measured"]) / \
+                one.ledger["measured"]
+            line(f"26b config5 {world} ranks rank {rank}",
+                 wall_s=c5["wall_s"], measured=c5["ledger"]["measured"],
+                 rel_diff_vs_1_rank=f"{rel:.3e}", launches=c5["brute"],
+                 cull_launches=c5["cull"])
+            line(f"26b config5 {world} ranks rank {rank} launch 0 vs plain",
+                 **c5["plain"])
+            check(rel <= 1e-4, f"phase 26b: config 5 at {world} ranks "
+                  "measures the one-rank power within rel 1e-4")
+            led_rel = max(abs(m2["ledger"][k] - v) / max(abs(v), 1e-30)
+                          for k, v in dev2.ledger.items() if abs(v) > 1e-7)
+            hist_err = float(np.abs(m2["hist"] - dev2.hist).max())
+            # one ray rank: the device trace's ray order, so its very bits
+            bits = (m2["ledger"] == dev2.ledger
+                    and np.array_equal(m2["hist"], dev2.hist))
+            if MESH2D_SHAPE[world][1] == 1:
+                check(bits, f"phase 26b: mesh2d{MESH2D_SHAPE[world]} bit "
+                      "for bit equal to device mode")
+            line(f"26b mesh2d{MESH2D_SHAPE[world]} rank {rank}",
+                 wall_s=m2["wall_s"], measured=m2["ledger"]["measured"],
+                 ledger_rel_max=f"{led_rel:.3e}", hist_err=hist_err,
+                 bit_equal_to_device=bits,
+                 padded_triangles=m2["padded"],
+                 shard_rows=m2["plain"]["triangles"], launches=m2["brute"],
+                 cull_launches=m2["cull"])
+            line(f"26b mesh2d{MESH2D_SHAPE[world]} rank {rank} launch 0 "
+                 "vs plain", **m2["plain"])
+            check(led_rel <= 1e-4 and hist_err <= 1e-5,
+                  f"phase 26b: mesh2d{MESH2D_SHAPE[world]} within rel 1e-4 "
+                  "(ledger) and atol 1e-5 (hist) of device mode")
+            for what in (c5, m2):
+                check(what["plain"]["tri_mismatch"] == 0
+                      and what["plain"]["t_bit_mismatch"] == 0,
+                      f"phase 26b: rank {rank} of {world}: its first launch "
+                      "bitwise equal to the plain version")
+            check(m2["plain"]["culled"] and m2["plain"]["triangles"] * \
+                  MESH2D_SHAPE[world][0] == m2["padded"],
+                  "phase 26b: a mesh2d launch is one triangle shard's rows "
+                  "with its own tile mask")
+            check(r["cfg5"]["ledger"] == res[0]["cfg5"]["ledger"]
+                  and r["mesh2d"]["ledger"] == res[0]["mesh2d"]["ledger"],
+                  "phase 26b: every rank returns the same ledger")
+        line(f"26b {world} ranks", launch_wall_s=f"{wall:.1f}",
+             card=repr(smi), note="ranks share one card: times show no "
+             "scaling")
+    # ---- 26c. no fallback: two NCCL ranks on one card are refused --------
+    results, wall = spawn_ranks(2, backend="nccl", job=nccl_job, timeout=90)
+    errors = [v.strip().splitlines()[-1] for s, v in results if s != "ok"]
+    line("26c nccl 2 ranks on one card", refused=len(errors),
+         wall_s=f"{wall:.1f}", error=repr(errors[0][:160] if errors else ""))
+    check(len(errors) == 2, "phase 26c: a two-rank NCCL group on one card "
+          "is refused on every rank, with no other backend swapped in")
+    line("26 multi-device", launches=brute, cull_launches=cull)
+    check(brute > 0 and cull > 0, "phase 26: the sharded runs launched the "
+          "kernel, brute and culled")
     return brute, cull
 
 
@@ -1861,13 +2202,7 @@ def main():
         line(f"9 profile {name}", **split)
 
     # ---- 10. config 4 at full size: trace_batched, the mega-batch path ----
-    oe4 = P.optical_elements(360, 180)
-    cfg4_els = [oe4.parabolic_mirror(focus=1.0, diameter=4.0,
-                                     reflectivity=0.95),
-                P.optical_elements(128, 32).hemisphere(radius=100.0,
-                                                       name="dome")]
-    src4 = P.CollimatedSource(center=(0, 0, 5), direction=(0, 0, -1),
-                              diameter=3.5, power=1.0)
+    cfg4_els, src4 = cfg4_elements(P), cfg4_source(P)
 
     def cfg4(total, cull, **kw):
         tr = P.Tracer(P.TraceConfig(trace_iterations=4, cull=cull))
@@ -2101,17 +2436,19 @@ def main():
     oracle_brute, oracle_cull = oracle_phases(P, PI)
     ex_brute, ex_cull = example_phases(P, PI)
     design_brute, design_cull = design_phases(P, PI)
+    multi_brute, multi_cull = multi_device_phases(P, PI, smi)
 
     table = {"kernels": [
         {"name": "nearest_hit (B1, brute)", "route": "cuda",
          "source": KERNEL_SRC, "replaces": f"{TPU_KERNEL}:154",
          "launches": (launches - cull_launches + launches4 - cull_launches4
                       + new_brute + spec_brute + oracle_brute + ex_brute
-                      + design_brute),
+                      + design_brute + multi_brute),
          "launches_trace_batched": launches4 - cull_launches4,
          "launches_physics": new_brute, "launches_spectral": spec_brute,
          "launches_oracle_parity": oracle_brute,
          "launches_examples": ex_brute, "launches_design": design_brute,
+         "launches_multi_device": multi_brute,
          "max_abs_err": b1_err,
          "ms": b1_ms, "plain_ms": b1_plain_ms, "bound_ms": b1_bound_ms,
          "bound_by": b1_bound_by, "share_of_bound": b1_bound_ms / b1_ms,
@@ -2120,11 +2457,12 @@ def main():
         {"name": "nearest_hit (B2, cull)", "route": "cuda",
          "source": KERNEL_SRC, "replaces": f"{TPU_KERNEL}:185",
          "launches": (cull_launches + cull_launches4 + new_cull + spec_cull
-                      + oracle_cull + ex_cull + design_cull),
+                      + oracle_cull + ex_cull + design_cull + multi_cull),
          "launches_trace_batched": cull_launches4,
          "launches_physics": new_cull, "launches_spectral": spec_cull,
          "launches_oracle_parity": oracle_cull,
          "launches_examples": ex_cull, "launches_design": design_cull,
+         "launches_multi_device": multi_cull,
          "max_abs_err": b2_err,
          "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound_ms,
          "bound_by": b2_bound_by, "share_of_bound": b2_bound_ms / b2_ms,

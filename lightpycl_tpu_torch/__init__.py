@@ -20,9 +20,11 @@ sources' device samplers, checkpoint / resume and ray-file replay
 oracle (`tracer.oracle`, `native`), `analysis`, `paraxial`, every `io`
 format, `utils` and the reference-named modules (`iterative_tracer`,
 `light_source`, `geo_optical_elements`), and differentiable design on
-torch autograd (`lightpycl_tpu_torch.diff`: lens and coating design loops).
-The multi-device modes are not ported yet and raise NotImplementedError
-(ROADMAP.md).
+torch autograd (`lightpycl_tpu_torch.diff`: lens and coating design loops),
+and the multi-device modes on torch.distributed
+(`lightpycl_tpu_torch.parallel`: rays sharded over a "rays" mesh axis,
+triangles over a "tris" axis, both at once; `mode="multichip"` and
+`mode="mesh2d"` of trace, trace_batched and trace_spectral).
 """
 
 from lightpycl_tpu_torch.materials import Material, glass

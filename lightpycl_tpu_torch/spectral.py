@@ -24,8 +24,15 @@ repeat run gives the same bits on the card. The shared path's top-k is a
 stable descending sort, so ties keep the lower slot as jax.lax.top_k does.
 The batched path's random draws come from one generator a bounce,
 `step.make_generator(device, cfg.seed, bounce)` (shade's uniforms, then
-the roulette uniforms), as `step.trace_loop` draws them. Sharded runs
-(`mesh=`, `trace_spectral_multichip`) wait for ROADMAP A 7.
+the roulette uniforms), as `step.trace_loop` draws them;
+make_generator(device, cfg.seed, ray_rank, bounce) under a mesh.
+
+Both methods shard over the "rays" axis of a torch DeviceMesh
+(`trace_spectral_dispersive(mesh=)`, `trace_spectral_multichip`): the
+batch is padded to a multiple of the ranks, round-robin interleaved, and
+each rank traces its share (parallel/sharding.py); the detector state, the
+spectra and the ledger are summed over the axis, and the final rays stay
+this rank's shard.
 """
 
 from __future__ import annotations
@@ -37,9 +44,10 @@ import torch
 from lightpycl_tpu_torch import physics
 from lightpycl_tpu_torch.materials import Material
 from lightpycl_tpu_torch.ops.intersect import intersect
+from lightpycl_tpu_torch.parallel import sharding
+from lightpycl_tpu_torch.parallel.distributed import all_reduce_packed, axis
 from lightpycl_tpu_torch.tracer import step as step_mod
 from lightpycl_tpu_torch.tracer.config import TraceConfig
-from lightpycl_tpu_torch.tracer.engine import _refuse_multi_device
 from lightpycl_tpu_torch.tracer.rays import DetectorState, Ledger, RayBatch
 from lightpycl_tpu_torch.tracer.scene import Scene, build_scene
 
@@ -320,7 +328,7 @@ def _wavelength_bins(wl, wl_grid):
 
 def _dispersive_loop(scene: Scene, rays: RayBatch, wl_grid, cfg: TraceConfig,
                      iterations: int, n_detectors: int,
-                     uniforms: Optional[Callable] = None):
+                     uniforms: Optional[Callable] = None, rng_words=None):
     """Fixed-depth scalar trace of a wavelength-flattened batch with a
     (D, W) per-(detector, wavelength) accumulator. The full scalar physics
     (dispersion, gratings, metals, coatings, polarization); each measured
@@ -328,10 +336,11 @@ def _dispersive_loop(scene: Scene, rays: RayBatch, wl_grid, cfg: TraceConfig,
 
     The loop calls shade / roulette / compact itself instead of
     `trace_step`: the measured-ray harvest there would dominate at W x C
-    slots. Bounce i draws from make_generator(device, cfg.seed, i), as
-    `step.trace_loop` does: shade's uniforms, then the roulette uniforms;
-    `uniforms(i)` -> (ShadeUniforms, roulette uniforms) injects them
-    instead (tests feeding the reference's own draws).
+    slots. Bounce i draws from make_generator(device, *rng_words, i)
+    (rng_words defaults to (cfg.seed,)), as `step.trace_loop` does:
+    shade's uniforms, then the roulette uniforms; `uniforms(i)` ->
+    (ShadeUniforms, roulette uniforms) injects them instead (tests feeding
+    the reference's own draws).
 
     Returns (rays, det, per_dw, led_w, amp_w): led_w is a PER-WAVELENGTH
     Ledger of (W,) columns, conserving emitted[w] == measured[w] +
@@ -367,6 +376,7 @@ def _dispersive_loop(scene: Scene, rays: RayBatch, wl_grid, cfg: TraceConfig,
         return step_mod.bincount_sorted(_wavelength_bins(wl, wl_grid), power,
                                         W)
 
+    words = (cfg.seed,) if rng_words is None else tuple(rng_words)
     z = torch.zeros((W,), dtype=_F32, device=dev)
     led_w = Ledger(emitted=bin_by(rays.wavelength, live_power(rays)),
                    measured=z, absorbed=z, escaped=z, culled=z)
@@ -376,7 +386,7 @@ def _dispersive_loop(scene: Scene, rays: RayBatch, wl_grid, cfg: TraceConfig,
             un, rr_u = uniforms(i)
         else:
             if cfg.needs_rng:
-                gen = step_mod.make_generator(dev, cfg.seed, i)
+                gen = step_mod.make_generator(dev, *words, i)
             un = (step_mod.draw_shade_uniforms(cfg, C, gen, dev)
                   if shade_rng else None)
             rr_u = None
@@ -468,8 +478,12 @@ def trace_spectral_dispersive(elements, rays: RayBatch, wavelengths,
     RayBatch, DetectorState, per-wavelength Ledger of (W,) columns whose
     column sums are the total Ledger, and the (W, 2, nb, nb)
     per-wavelength coherent field planes when cfg.coherent). `uniforms`:
-    see `_dispersive_loop`. `mesh` is not ported (ROADMAP A 7)."""
-    _refuse_multi_device("device", mesh)
+    see `_dispersive_loop`.
+
+    `mesh` (a 1-D torch DeviceMesh) shards the flattened batch over its
+    "rays" axis, round-robin interleaved like every sharded path; the
+    DetectorState, spectra, field planes and ledger are summed over the
+    axis, and the final RayBatch is this rank's shard."""
     cfg = (cfg or TraceConfig()).replace(
         has_gratings=any(e.material == Material.GRATING for e in elements),
         has_diffuse=any(e.material == Material.DIFFUSE for e in elements),
@@ -484,8 +498,17 @@ def trace_spectral_dispersive(elements, rays: RayBatch, wavelengths,
     if weights is None:
         weights = _default_weights(wl)
     big = spread_rays_over_wavelengths(rays, wl, weights)
+    rng_words = None
+    if mesh is not None:
+        n, r, group = axis(mesh, sharding.RAY_AXIS)
+        big = sharding.shard_rays(sharding.padded_for(big, n), mesh)
+        rng_words = (cfg.seed, r)
     rays_out, det, per_dw, led_w, amp_w = _dispersive_loop(
-        scene, big, wl, cfg, iterations, len(det_names), uniforms=uniforms)
+        scene, big, wl, cfg, iterations, len(det_names), uniforms=uniforms,
+        rng_words=rng_words)
+    if mesh is not None:
+        det, led_w = sharding.reduce_state(det, led_w, group)
+        per_dw, amp_w = all_reduce_packed([per_dw, amp_w], group)
     led = Ledger(*(torch.sum(x) for x in led_w))
     return per_dw, led, det_names, rays_out, det, led_w, amp_w
 
@@ -528,5 +551,22 @@ def trace_spectral(elements, rays: RayBatch, wavelengths, weights=None,
 def trace_spectral_multichip(elements, rays: RayBatch, wavelengths,
                              weights=None, cfg: TraceConfig | None = None,
                              iterations: int = 8, mesh=None):
-    """The sharded twin of trace_spectral: not ported yet (ROADMAP A 7)."""
-    _refuse_multi_device("multichip", mesh)
+    """Spectral trace SPMD over a 1-D "rays" mesh (default every rank of
+    the process group): every rank passes the same rays, keeps its
+    round-robin share (capacity padded to a multiple of the ranks) and
+    runs the wavelength-parallel loop on it; the (D, W) per-detector
+    spectra, the DetectorState and the per-wavelength ledger are summed
+    over the axis. The sharded twin of trace_spectral with the same return
+    contract; the final SpectralRays are this rank's shard."""
+    cfg, scene, det_names, wl, weights = _resolve_spectral(
+        elements, cfg, wavelengths, weights, rays.device)
+    if mesh is None:
+        mesh = sharding.make_ray_mesh(device=rays.device)
+    n, _, group = axis(mesh, sharding.RAY_AXIS)
+    rays = sharding.shard_rays(sharding.padded_for(rays, n), mesh)
+    sr = SpectralRays.from_batch(rays, weights)
+    sr, det, per_det, led = trace_spectral_loop(scene, sr, wl, cfg,
+                                                iterations, len(det_names))
+    det, led = sharding.reduce_state(det, led, group)
+    per_det, = all_reduce_packed([per_det], group)
+    return per_det, led, det_names, sr, det

@@ -2,9 +2,9 @@
 
 Port counterpart of lightpycl_tpu/tracer/engine.py: `TraceResult` (with the
 coherent / flux / time maps and the per-batch statistics) and `Tracer` with
-`set_elements`, `trace` in its two single-device modes (with the
-reference's `iterative_tracer` alias and `profile_logdir`, a torch.profiler
-trace), `trace_batched` in device mode, the cfg resolution and checks
+`set_elements`, `trace` in every mode of the reference (with its
+`iterative_tracer` alias and `profile_logdir`, a torch.profiler trace),
+`trace_batched`, `trace_spectral`, the cfg resolution and checks
 (`_resolve_ray_len`, `_resolve_cull`, `_tune_splitting`, the has-flag
 resolution of `_check_polarization`, `_check_flux_map`,
 `_check_time_bins`), `_package` and `get_surface_flux`.
@@ -14,22 +14,34 @@ resolution of `_check_polarization`, `_check_flux_map`,
     back, individual measured rays do not.
   * 'host': the same steps, harvesting measured rays (and optionally ray
     segments) after every bounce: the reference's per-iteration semantics.
+  * 'multichip': the rays shard over the "rays" axis of a torch DeviceMesh
+    (`mesh=`, default every rank of the process group; a one-rank group is
+    started when there is none) with the scene on every rank, and the
+    detector state and ledger are summed over the axis
+    (parallel/sharding.py).
+  * 'mesh2d': the triangles also shard, over the "tris" axis of a
+    ("tris", "rays") mesh (`mesh=make_mesh2d(n_tris, n_rays)`, required;
+    parallel/mesh2d.py).
   * `trace_batched`: the mega-batch entry point; each batch is sampled on the
     device from a generator that depends only on (seed, batch), traced in
-    device mode, and summed into float64 host accumulators, with an
-    optional checkpoint after every batch.
+    device (or a sharded) mode, and summed into float64 host accumulators,
+    with an optional checkpoint after every batch.
+
+The sharded modes are SPMD by launch: every rank calls the same method with
+the same arguments, and every rank returns the same TraceResult (its maps,
+ledger and live power are summed over the mesh). The tracer's device must
+be its rank's (`parallel.distributed.check_device`).
 
 The tracer runs on an explicit `device` (default CUDA; the CPU only when
-asked for). Every scene the reference's `trace` accepts in these modes is
-accepted here (polarized, coated, metallic, diffracting, birefringent,
-diffuse, rough, turbid, fluorescent, gradient-index and analytic elements,
-path tracking in host mode), and `trace_spectral` (the shared-geometry and
-wavelength-batched methods of spectral.py, device mode) accepts every
-scene the reference's does; the multi-device modes raise
-NotImplementedError naming their ROADMAP item. The reference's own quirks
-in `_resolve_ray_len` (an explicit max_ray_len equal to the default counts
-as unset; the reach includes dead padding slots' origins) are reproduced,
-not fixed.
+asked for). Every scene the reference's `trace` accepts is accepted here
+(polarized, coated, metallic, diffracting, birefringent, diffuse, rough,
+turbid, fluorescent, gradient-index and analytic elements, path tracking
+in host mode), with the reference's refusals in mesh2d mode, and
+`trace_spectral` (the shared-geometry and wavelength-batched methods of
+spectral.py, device and multichip modes) accepts every scene the
+reference's does. The reference's own quirks in `_resolve_ray_len` (an
+explicit max_ray_len equal to the default counts as unset; the reach
+includes dead padding slots' origins) are reproduced, not fixed.
 """
 
 from __future__ import annotations
@@ -48,6 +60,9 @@ from lightpycl_tpu_torch import analysis
 from lightpycl_tpu_torch.geometry.mesh import GeoObject
 from lightpycl_tpu_torch.io import checkpoint
 from lightpycl_tpu_torch.materials import Material
+from lightpycl_tpu_torch.parallel import distributed as pdist
+from lightpycl_tpu_torch.parallel import mesh2d as mesh2d_mod
+from lightpycl_tpu_torch.parallel import sharding
 from lightpycl_tpu_torch.tracer import step as step_mod
 from lightpycl_tpu_torch.tracer.config import TraceConfig
 from lightpycl_tpu_torch.tracer.rays import DetectorState, Ledger, RayBatch
@@ -63,12 +78,16 @@ _CKPT_KEYS = {"hist": "hist64", "per_detector": "per_det64",
               "tri_flux": "tri_flux64", "time_hist": "time64"}
 
 
-def _refuse_multi_device(mode: str, mesh) -> None:
-    if mode in ("multichip", "mesh2d") or mesh is not None:
-        what = f"mode={mode!r}" if mesh is None else "device meshes (mesh=)"
-        raise NotImplementedError(
-            f"{what} is not ported to lightpycl_tpu_torch yet "
-            "(ROADMAP A 7: parallel/ on torch.distributed)")
+def _check_replicated_scene(cfg: TraceConfig, mode: str,
+                            modes: str) -> None:
+    """The reference's mesh2d refusal: these scenes index tables by element,
+    not by the sharded triangle columns."""
+    if (cfg.has_fluorescence or cfg.has_grin
+            or cfg.has_analytic) and mode == "mesh2d":
+        raise ValueError(
+            "fluorescent/GRIN/analytic-surface scenes need the scene "
+            "replicated (their tables index by element, not by sharded "
+            f"triangle column): use mode={modes}, not 'mesh2d'")
 
 
 def _check_coherent(cfg: TraceConfig) -> None:
@@ -292,13 +311,22 @@ class Tracer:
               record_paths: bool = False, rays: Optional[RayBatch] = None,
               profile_logdir: Optional[str] = None, mesh=None,
               **cfg_overrides) -> TraceResult:
-        """Run the iterative trace (mode 'host' or 'device').
+        """Run the iterative trace.
 
         `source` is a LightSource / CollimatedSource / AreaSource (or None
         if `rays` is given). Remaining kwargs override TraceConfig fields,
-        mirroring the reference's iterative_tracer(...) signature."""
-        _refuse_multi_device(mode, mesh)
-        if mode not in ("host", "device"):
+        mirroring the reference's iterative_tracer(...) signature.
+
+        mode="multichip" shards the ray batch over the "rays" axis of
+        `mesh` (a 1-D torch DeviceMesh; default every rank of the process
+        group) with the scene replicated, and sums the detector state and
+        ledger over it: every rank returns the same TraceResult, equal to a
+        single-device run's up to the order of the sums. mode="mesh2d" also
+        shards the TRIANGLES over the "tris" axis of a ("tris", "rays")
+        mesh (`mesh=make_mesh2d(n_tris, n_rays)`, required). Both run the
+        fixed depth (a shard stops when its rays are all dead);
+        measured-ray lists and record_paths need mode="host"."""
+        if mode not in ("host", "device", "multichip", "mesh2d"):
             raise ValueError(f"unknown mode {mode!r}")
         cfg = self.cfg
         if trace_iterations is not None:
@@ -319,6 +347,7 @@ class Tracer:
                 cfg = cfg.replace(path_base=2 * len(self.elements) + 1)
         cfg = self._tune_splitting(cfg)
         cfg = self._check_polarization(cfg)
+        _check_replicated_scene(cfg, mode, "'host'/'device'/'multichip'")
         self._check_flux_map(cfg, mode)
         self._check_time_bins(cfg)
         _check_fluorescence(cfg)
@@ -336,6 +365,9 @@ class Tracer:
         if cfg.cull and not self._scene_sorted:
             # spatially-sorted triangle tiles are what make the cull bite
             self.set_elements(self.elements, spatial_sort=True)
+        if mode in ("multichip", "mesh2d"):
+            mesh, n_ray_ranks = self._prepare_mesh(mode, mesh)
+            rays = sharding.padded_for(rays, n_ray_ranks)
         C = rays.capacity
         emitted = float(torch.sum(torch.where(rays.alive, rays.power, 0.0)))
         det = self._detector_zeros(cfg)
@@ -346,7 +378,7 @@ class Tracer:
             self.num_triangles, cfg.trace_iterations, mode, self.device)
         with trace_profile(profile_logdir):
             result = self._run(mode, rays, det, led, cfg, C, emitted,
-                               record_paths)
+                               record_paths, mesh=mesh)
         self.last_result = result
         log.info(
             "trace done: %.3fs, %.3g intersection tests/s, %.3g rays/s",
@@ -375,12 +407,14 @@ class Tracer:
             'batched'. Coherent runs always take 'batched' (one field plane
             a wavelength).
 
-        Only mode='device' is ported ('multichip' and `mesh` wait for
-        ROADMAP A 7). rays_traced / intersection_tests count geometry
-        passes: once for 'shared', W-fold for 'batched'."""
+        mode="multichip" shards the rays over a 1-D "rays" mesh exactly
+        like Tracer.trace(mode="multichip"): for 'shared' the spectral rows
+        shard, for 'batched' the wavelength-flattened W x C batch (round-
+        robin interleaved; detector, spectra and ledger summed over the
+        axis). rays_traced / intersection_tests count geometry passes: once
+        for 'shared', W-fold for 'batched'."""
         from lightpycl_tpu_torch import spectral as spectral_mod
 
-        _refuse_multi_device(mode, mesh)
         cfg = self.cfg
         if trace_iterations is not None:
             cfg_overrides["trace_iterations"] = int(trace_iterations)
@@ -436,11 +470,13 @@ class Tracer:
                 method = "shared"
             except ValueError:
                 method = "batched"
-        if mode != "device":
+        if mode not in ("device", "multichip"):
             what = ("trace_spectral(method='batched') mode"
                     if method == "batched" else "trace_spectral mode")
             raise ValueError(f"{what} must be 'device' or 'multichip', "
                              f"got {mode!r}")
+        mesh = (self._prepare_mesh(mode, mesh)[0] if mode == "multichip"
+                else None)
         C = rays.capacity
         W = len(np.atleast_1d(np.asarray(wavelengths)))
         emitted_rows = float(torch.sum(torch.where(rays.alive, rays.power,
@@ -456,19 +492,28 @@ class Tracer:
             per_det, led, det_names, rays_out, det, led_w, amp_w = (
                 spectral_mod.trace_spectral_dispersive(
                     self.elements, rays, wavelengths, weights=weights,
-                    cfg=cfg_b, iterations=cfg.trace_iterations))
+                    cfg=cfg_b, iterations=cfg.trace_iterations, mesh=mesh))
             live = torch.sum(torch.where(rays_out.alive, rays_out.power,
                                          0.0))
             image_amp_spectral = amp_w if cfg.coherent else None
             geom_rays = W * C
         else:
-            per_det, led_w, det_names, sr, det = spectral_mod.trace_spectral(
-                self.elements, rays, wavelengths, weights=weights, cfg=cfg,
-                iterations=cfg.trace_iterations)
+            if mesh is None:
+                per_det, led_w, det_names, sr, det = (
+                    spectral_mod.trace_spectral(
+                        self.elements, rays, wavelengths, weights=weights,
+                        cfg=cfg, iterations=cfg.trace_iterations))
+            else:
+                per_det, led_w, det_names, sr, det = (
+                    spectral_mod.trace_spectral_multichip(
+                        self.elements, rays, wavelengths, weights=weights,
+                        cfg=cfg, iterations=cfg.trace_iterations, mesh=mesh))
             live = torch.sum(torch.where(sr.alive[:, None], sr.P, 0.0))
             led = Ledger(*(torch.sum(x) for x in led_w))
             image_amp_spectral = None
             geom_rays = C
+        if mesh is not None:
+            live = self._sum_over_rays(live, mesh)
         # one transfer of the ledgers and the live power
         scalars = torch.cat([torch.stack(list(led)), live[None],
                              torch.stack(list(led_w)).reshape(-1)]).cpu()
@@ -542,9 +587,21 @@ class Tracer:
         the same bits as an uninterrupted one. `max_batches` stops after
         that many batches of this call. `capacity` (default batch_size)
         gives split-heavy scenes headroom, as in trace(capacity=...).
-        Only mode='device' is ported."""
-        _refuse_multi_device(mode, mesh)
-        if mode != "device":
+
+        mode="multichip" shards every batch over the "rays" axis of the
+        mesh (default every rank of the process group) exactly like
+        Tracer.trace(mode="multichip"); mode="mesh2d" also shards the
+        triangles over the "tris" axis of a ("tris", "rays") mesh
+        (required), placed once for the run. Every rank samples the same
+        batch and keeps its interleaved share; bounce i of ray rank r of
+        batch b draws from make_generator(device, seed, b, 0x5757, r, i).
+        Each batch runs the fixed depth (a shard stops when its rays are
+        all dead); leftover live power is culled into the ledger either
+        way. Under a mesh the checkpoint is written by the mesh's first
+        rank, and every rank then waits at a barrier, so no rank reads a
+        checkpoint that is still being written; every rank reads it on
+        resume."""
+        if mode not in ("device", "multichip", "mesh2d"):
             raise ValueError(f"trace_batched mode must be 'device', "
                              f"'multichip' or 'mesh2d', got {mode!r}")
         cfg = self.cfg.replace(**cfg_overrides) if cfg_overrides else self.cfg
@@ -555,6 +612,7 @@ class Tracer:
         _check_coherent(cfg)
         cfg = self._tune_splitting(cfg)
         cfg = self._check_polarization(cfg)
+        _check_replicated_scene(cfg, mode, "'device'/'multichip'")
         self._check_flux_map(cfg, mode)
         self._check_time_bins(cfg)
         dev = self.device
@@ -570,6 +628,13 @@ class Tracer:
                 center, np.float64).reshape(1, 3))
         if cfg.cull and not self._scene_sorted:
             self.set_elements(self.elements, spatial_sort=True)
+        scene = self.scene
+        if mode != "device":
+            mesh, n_ray_ranks = self._prepare_mesh(mode, mesh)
+            if mode == "mesh2d":
+                # once, for every batch
+                scene = mesh2d_mod.place_scene(self.scene, mesh)
+        writes_checkpoint = mode == "device" or pdist.is_origin(mesh)
         n_batches = max(1, total_rays // batch_size)
         if total_rays != n_batches * batch_size:
             log.warning(
@@ -623,11 +688,14 @@ class Tracer:
             per_batch.append(host[1])  # this batch's per_detector
             led64[:] += host[-1]
             if checkpoint_path is not None:
-                checkpoint.save_state(
-                    checkpoint_path, **{key: acc[f]
-                                        for f, key in _CKPT_KEYS.items()},
-                    per_batch=np.asarray(per_batch), led64=led64,
-                    next_batch=b + 1)
+                if writes_checkpoint:
+                    checkpoint.save_state(
+                        checkpoint_path, **{key: acc[f]
+                                            for f, key in _CKPT_KEYS.items()},
+                        per_batch=np.asarray(per_batch), led64=led64,
+                        next_batch=b + 1)
+                if mode != "device":
+                    pdist.barrier(mesh)
             log.info("batch %d/%d done", b + 1, n_batches)
 
         self._sync()
@@ -640,14 +708,21 @@ class Tracer:
                 break
             done += 1
             rays = assemble(b)
-            led_b = Ledger.start(torch.sum(rays.power * rays.alive),
-                                 device=dev)
-            rays, det_b, led_b, iters_b = step_mod.trace_loop(
-                self.scene, rays, zeros, led_b, cfg, cfg.trace_iterations,
-                rng_words=(seed, b, 0x5757))
+            if mode == "device":
+                led_b = Ledger.start(torch.sum(rays.power * rays.alive),
+                                     device=dev)
+                rays, det_b, led_b, iters_b = step_mod.trace_loop(
+                    scene, rays, zeros, led_b, cfg, cfg.trace_iterations,
+                    rng_words=(seed, b, 0x5757))
+                leftover = torch.sum(torch.where(rays.alive, rays.power,
+                                                 0.0))
+            else:
+                rays = sharding.padded_for(rays, n_ray_ranks)
+                _, det_b, led_b, leftover = self._trace_sharded(
+                    mode, mesh, scene, rays, cfg, key=(seed, b, 0x5757))
+                iters_b = cfg.trace_iterations
             batch_iters.append(iters_b)
             # rays still alive when the batch retires are booked as culled
-            leftover = torch.sum(torch.where(rays.alive, rays.power, 0.0))
             led_b = led_b._replace(culled=led_b.culled + leftover)
             if pending is not None:
                 consume(*pending)
@@ -828,10 +903,66 @@ class Tracer:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _prepare_mesh(self, mode, mesh):
+        """(mesh, its ray-rank count) of a sharded mode: multichip defaults
+        to every rank of the process group, mesh2d needs its mesh and a
+        padded triangle count that the "tris" axis divides (the
+        reference's refusals); the tracer's device must be this rank's."""
+        if mode == "multichip":
+            if mesh is None:
+                mesh = sharding.make_ray_mesh(device=self.device)
+        else:
+            if mesh is None:
+                raise ValueError(
+                    "mode='mesh2d' needs mesh=make_mesh2d(n_tris, n_rays)")
+            n_tris = pdist.axis(mesh, mesh2d_mod.TRI_AXIS)[0]
+            if self.scene.num_triangles_padded % n_tris:
+                raise ValueError(
+                    f"padded triangle count {self.scene.num_triangles_padded}"
+                    f" not divisible by the {n_tris}-way triangle axis")
+        n_ray_ranks = pdist.axis(mesh, sharding.RAY_AXIS)[0]
+        pdist.check_device(mesh, self.device)
+        return mesh, n_ray_ranks
+
+    @staticmethod
+    def _sum_over_rays(x, mesh):
+        """x summed over the mesh's "rays" axis (x is replicated over any
+        other axis)."""
+        return pdist.all_reduce_packed(
+            [x], pdist.axis(mesh, sharding.RAY_AXIS)[2])[0]
+
+    def _trace_sharded(self, mode, mesh, scene, rays, cfg, key):
+        """One sharded trace of the whole batch `rays` (every rank passes
+        the same; `scene` is the whole scene, or this rank's triangle shard
+        under mesh2d). Returns (this rank's final rays, the global
+        DetectorState and Ledger, the global live power)."""
+        fn = (sharding.trace_multichip if mode == "multichip"
+              else mesh2d_mod.trace_mesh2d)
+        rays_out, det, led = fn(
+            scene, sharding.shard_rays(rays, mesh), cfg,
+            cfg.trace_iterations, mesh,
+            n_detectors=max(len(self.detector_names), 1),
+            key=key if cfg.needs_rng else None)
+        live = torch.sum(torch.where(rays_out.alive, rays_out.power, 0.0))
+        return rays_out, det, led, self._sum_over_rays(live, mesh)
+
     def _run(self, mode, rays, det, led, cfg, C, emitted,
-             record_paths) -> TraceResult:
+             record_paths, mesh=None) -> TraceResult:
         self._sync()
         t0 = time.perf_counter()
+        if mode in ("multichip", "mesh2d"):
+            if record_paths:
+                log.warning("record_paths requires mode='host'; %s mode "
+                            "returns no path segments", mode)
+            scene = (mesh2d_mod.place_scene(self.scene, mesh)
+                     if mode == "mesh2d" else self.scene)
+            rays_out, det, led, live = self._trace_sharded(
+                mode, mesh, scene, rays, cfg, key=cfg.seed)
+            self._sync()
+            wall = time.perf_counter() - t0
+            return self._package(rays_out, det, led, [], [],
+                                 cfg.trace_iterations, C, wall, cfg,
+                                 live_power=live)
         if mode == "device":
             if record_paths:
                 log.warning("record_paths requires mode='host'; device mode "
@@ -876,14 +1007,17 @@ class Tracer:
                              wall, cfg)
 
     def _package(self, rays, det, led, harvested, segments, iters, C,
-                 wall, cfg) -> TraceResult:
+                 wall, cfg, live_power=None) -> TraceResult:
+        """The TraceResult of a trace; `live_power` (a sharded trace's,
+        summed over the mesh) defaults to the live power of `rays`."""
         if harvested:
             cols = [np.concatenate([h[k] for h in harvested])
                     for k in range(8)]
         else:
             cols = _no_measured_rays()
-        live_power = float(torch.sum(torch.where(rays.alive, rays.power,
-                                                 0.0)))
+        if live_power is None:
+            live_power = torch.sum(torch.where(rays.alive, rays.power, 0.0))
+        live_power = float(live_power)
         real_tris = self.num_triangles
         return TraceResult(
             *cols,
@@ -928,7 +1062,7 @@ class Tracer:
         if r.tri_flux is None:
             raise ValueError(
                 "no flux map on the last trace: set "
-                "TraceConfig(flux_map=True) (host/device modes)")
+                "TraceConfig(flux_map=True) (host/device/multichip modes)")
         names = [getattr(e, "name", None) or i
                  for i, e in enumerate(self.elements)]
         return analysis.surface_flux(r.tri_flux, self.scene,

@@ -17,8 +17,10 @@ with its sub-step loop, path signatures, the split and no-split child
 layouts), `merge_analytic` (exact quadric hits, ops/quadric.py),
 `accumulate_detector(_arrays)` with `image_flat_indices` and the optional
 maps (coherent field, time-of-flight histogram, per-facet flux), Russian
-`roulette`, `compact` (no-split, 'topk', 'stream'), `trace_step` with the
-measured-ray front compaction, and the device loop.
+`roulette`, `compact` (no-split, 'topk', 'stream'), `trace_step` (its
+second half, from shade on, is `finish_step`, which the triangle-sharded
+trace calls after its own sharded intersect) with the measured-ray front
+compaction, and the device loop.
 
 Determinism: the detector scatter-adds are a sort-based segmented sum with
 a fixed association (`bincount_sorted`, no float atomics), so the same
@@ -1477,6 +1479,22 @@ def trace_step(scene: Scene, rays: RayBatch, det: DetectorState, led: Ledger,
         use_q, nq = quad_hit
         attrs = default_hit_attrs(scene, torch.clamp_min(tri, 0), cfg)
         attrs["normal"] = torch.where(use_q[:, None], nq, attrs["normal"])
+    return finish_step(scene, rays, t, tri, attrs, det, led, cfg,
+                       with_aux=with_aux, gen=gen, uniforms=uniforms,
+                       roulette_u=roulette_u)
+
+
+def finish_step(scene: Scene, rays: RayBatch, t, tri, attrs,
+                det: DetectorState, led: Ledger, cfg: TraceConfig,
+                with_aux: bool = True, gen: torch.Generator | None = None,
+                uniforms: Optional[ShadeUniforms] = None,
+                roulette_u: Optional[torch.Tensor] = None,
+                book: bool = True):
+    """The bounce after its nearest hit (t, tri) and hit attributes (None:
+    shade gathers them): shade, measure, (roulette,) compact, ledger, as
+    `trace_step` describes. With book=False the detector state and the
+    ledger come back unchanged (a triangle-sharded trace books them on one
+    rank of the triangle axis only)."""
     shade_rng = (cfg.has_diffuse or cfg.has_scattering
                  or cfg.has_fluorescence or cfg.has_roughness)
     if uniforms is None and shade_rng:
@@ -1486,7 +1504,8 @@ def trace_step(scene: Scene, rays: RayBatch, det: DetectorState, led: Ledger,
                              "generator")
         uniforms = draw_shade_uniforms(cfg, rays.capacity, gen, rays.device)
     sh = shade(scene, rays, t, tri, cfg, attrs=attrs, uniforms=uniforms)
-    det = accumulate_detector(det, sh, rays, cfg, tri=tri)
+    if book:
+        det = accumulate_detector(det, sh, rays, cfg, tri=tri)
     rr_delta = 0.0
     if cfg.roulette_threshold > 0.0:
         if roulette_u is None:
@@ -1498,14 +1517,15 @@ def trace_step(scene: Scene, rays: RayBatch, det: DetectorState, led: Ledger,
                                     device=sh.child_power.device)
         sh, rr_delta = roulette(sh, cfg, roulette_u)
     new_rays, culled = compact(sh, rays.capacity, cfg)
-    culled = culled + rr_delta + sh.policy_dropped
-    led = Ledger(
-        emitted=led.emitted,
-        measured=led.measured + torch.sum(sh.measured_power),
-        absorbed=led.absorbed + sh.absorbed,
-        escaped=led.escaped + sh.escaped,
-        culled=led.culled + culled,
-    )
+    if book:
+        culled = culled + rr_delta + sh.policy_dropped
+        led = Ledger(
+            emitted=led.emitted,
+            measured=led.measured + torch.sum(sh.measured_power),
+            absorbed=led.absorbed + sh.absorbed,
+            escaped=led.escaped + sh.escaped,
+            culled=led.culled + culled,
+        )
     aux = _measured_aux(sh, rays, new_rays) if with_aux else None
     return new_rays, det, led, aux
 

@@ -550,16 +550,47 @@ def test_engine_refusals_as_reference(case):
 
 
 def test_multi_device_raises_naming_a7():
-    o, d, p = beam_rays(16, 1)
-    rays = P.RayBatch.from_arrays(o, d, p, device=CPU)
+    """The multi-device spectral paths are ported (the name stays from
+    when they raised). On the port's one-rank group (started in this
+    process) against the reference's 8 virtual devices: the engine's
+    multichip mode and the module's trace_spectral_multichip give the
+    reference's spectra and ledger; a mesh= that is no mesh is not read in
+    device mode (either package), so that run equals the plain one bit for
+    bit; trace_spectral_dispersive reads its mesh and raises the
+    reference's AttributeError on one that is no mesh."""
+    o, d, p = beam_rays(64, 1)
+    rr, pr = both_batches(o, d, p, 256)
+    port_tr = P.Tracer(device=CPU)
+    plain = port_tr.trace_spectral(None, WL3, elements=coated_window(P),
+                                   rays=pr, trace_iterations=6)
     for kw in (dict(mode="multichip"), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="A 7"):
-            P.Tracer(device=CPU).trace_spectral(
-                None, WL3, elements=coated_window(P), rays=rays, **kw)
-    with pytest.raises(NotImplementedError, match="A 7"):
-        PS.trace_spectral_dispersive(prism(P), rays, WL3, mesh=object())
-    with pytest.raises(NotImplementedError, match="A 7"):
-        PS.trace_spectral_multichip(coated_window(P), rays, WL3)
+        port = port_tr.trace_spectral(None, WL3, elements=coated_window(P),
+                                      rays=pr, trace_iterations=6, **kw)
+        ref = L.Tracer().trace_spectral(None, WL3, elements=coated_window(L),
+                                        rays=rr, trace_iterations=6, **kw)
+        for k in LEDGER:
+            close(ref.spectral_ledger[k], port.spectral_ledger[k], CLOSES)
+        close(ref.per_detector_spectrum, port.per_detector_spectrum,
+              REF_DRIFT)
+        close(ref.hist, port.hist, REF_DRIFT)
+        assert port.final_live_power == pytest.approx(ref.final_live_power,
+                                                      abs=CLOSES)
+        if "mesh" in kw:
+            assert np.array_equal(port.per_detector_spectrum,
+                                  plain.per_detector_spectrum)
+            assert port.ledger == plain.ledger
+    with pytest.raises(AttributeError):
+        PS.trace_spectral_dispersive(prism(P), pr, WL3, mesh=object())
+    with pytest.raises(AttributeError):
+        RS.trace_spectral_dispersive(prism(L), rr, WL3, mesh=object())
+    per_det, led, names, _, _ = PS.trace_spectral_multichip(
+        coated_window(P), pr, WL3, iterations=6)
+    r_per_det, r_led, r_names, _, _ = RS.trace_spectral_multichip(
+        coated_window(L), rr, WL3, iterations=6)
+    assert names == r_names
+    close(r_per_det, per_det.numpy(), REF_DRIFT)
+    for k in LEDGER:
+        close(getattr(r_led, k), getattr(led, k).numpy(), CLOSES)
 
 
 def test_compat_wavelengths_equals_trace_spectral():

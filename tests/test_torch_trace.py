@@ -212,24 +212,37 @@ UNPORTED = {
 
 @pytest.mark.parametrize("feature", sorted(UNPORTED))
 def test_unported_feature_raises(feature):
-    """The multi-device modes still raise, naming their ROADMAP item. The
-    two cfg switches this test once expected to raise (polarization,
-    track_paths) are ported: they now give the reference's result."""
+    """Every feature this test once expected to raise is ported and gives
+    the reference's result: polarization and track_paths in host mode,
+    mode='multichip' on the port's one-rank group (started in this
+    process) against the reference's 8 virtual devices, and mode='mesh2d'
+    without a mesh the reference's own refusal, word for word."""
     oe = P.optical_elements(8, 4)
     src = P.light_source(ray_count=16)
     kw = UNPORTED[feature]
-    if "mode" in kw:
-        with pytest.raises(NotImplementedError, match=r"ROADMAP A 7"):
+
+    def ref_trace():
+        return L.Tracer().trace(L.sources.light_source(ray_count=16),
+                                [L.optical_elements(8, 4).hemisphere(2.0)],
+                                trace_iterations=1, **kw)
+
+    if feature == "mesh2d":
+        with pytest.raises(ValueError) as port_err:
             P.Tracer(device=CPU).trace(src, [oe.hemisphere(2.0)],
                                        trace_iterations=1, **kw)
+        with pytest.raises(ValueError) as ref_err:
+            ref_trace()
+        assert str(port_err.value) == str(ref_err.value)
+        assert "mesh=make_mesh2d" in str(port_err.value)
         return
     port = P.Tracer(device=CPU).trace(src, [oe.hemisphere(2.0)],
                                       trace_iterations=1, **kw)
-    ref = L.Tracer().trace(L.sources.light_source(ray_count=16),
-                           [L.optical_elements(8, 4).hemisphere(2.0)],
-                           trace_iterations=1, **kw)
+    ref = ref_trace()
     assert port.ledger["measured"] == pytest.approx(1.0, abs=1e-6)
     assert port.ledger == pytest.approx(ref.ledger, abs=1e-6)
+    np.testing.assert_allclose(port.hist, ref.hist, atol=1e-6)
+    assert port.final_live_power == pytest.approx(ref.final_live_power,
+                                                  abs=1e-6)
     assert np.array_equal(port.measured_path, ref.measured_path)
     assert np.allclose(port.measured_stokes, ref.measured_stokes, atol=2e-5)
 
@@ -268,16 +281,26 @@ def test_unported_scene_feature_raises(feature):
 
 
 def test_unported_entry_points_raise():
-    tr = P.Tracer(device=CPU)
-    with pytest.raises(NotImplementedError, match="multichip"):
-        tr.trace_batched(None, 10, 5, mode="multichip")
-    # spectral tracing is ported; its multi-device modes wait for A 7
-    with pytest.raises(NotImplementedError, match="A 7"):
-        tr.trace_spectral(None, [0.5], mode="multichip")
-    with pytest.raises(NotImplementedError, match="A 7"):
-        CL_Tracer(device=CPU).iterative_tracer(
-            P.light_source(ray_count=4), [], wavelengths=[0.5],
-            mode="multichip")
+    """The multi-device entry points are ported: called without a scene
+    they refuse as the reference does, word for word."""
+    def message(call):
+        with pytest.raises(ValueError) as e:
+            call()
+        return str(e.value)
+
+    calls = {
+        "trace_batched": lambda M, tr: tr.trace_batched(None, 10, 5,
+                                                        mode="multichip"),
+        "trace_spectral": lambda M, tr: tr.trace_spectral(None, [0.5],
+                                                          mode="multichip"),
+        "iterative_tracer": lambda M, tr: tr.iterative_tracer(
+            M.light_source(ray_count=4), [], wavelengths=[0.5],
+            mode="multichip"),
+    }
+    for name, call in calls.items():
+        port = message(lambda: call(P, CL_Tracer(device=CPU)))
+        ref = message(lambda: call(L, L.CL_Tracer()))
+        assert port == ref, name
 
 
 def test_cuda_device_without_card_raises():
