@@ -17,10 +17,13 @@ Michelson's per-wavelength field planes), the epilogue-variant bench
 shape), BASELINE configs 1-3 against the port's float64 oracle (detected
 power within 0.1 %, the oracle on its native g++ core where there is one),
 the 30 example scripts that need no multi-device mode (each copied with its
-import root swapped and run in its own process at its default size) and
+import root swapped and run in its own process at its default size),
 differentiable design on torch autograd (diff.py: the lensmaker and
 stigmatic-conic descents, the loss and gradient on the card against the
-CPU, a V-coat designed and traced), holds every kernel against its plain
+CPU, a V-coat designed and traced), the sharded modes, and last the
+port's bench entry point (`python3 -m lightpycl_tpu_torch.bench`) in its
+own process, its line checked and its B1 rate held to phase 3's; it
+holds every kernel against its plain
 torch version (the nearest-hit kernel and every epilogue variant also on
 rays built to sit on their reject margin, from edge_rays.py, and the
 nearest hit on the rays and cull masks that the physics traces and config
@@ -40,6 +43,7 @@ Output: one line per phase; then the kernel table as JSON, the card's
 
 import ctypes
 import json
+import os
 import re
 import subprocess
 import sys
@@ -51,7 +55,12 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-BENCH_RAYS = 1 << 19      # 524,288 rays (bench.py)
+from lightpycl_tpu_torch.bench import (BENCH_PY_KEYS, BENCH_RAYS, TIMED,
+                                       bench_rays, bound, bowl_elements,
+                                       bowl_source, check, config1_elements,
+                                       config1_source, cuda_ms,
+                                       headline_sphere)
+
 CMP_RAYS = 1 << 16        # 65,536 rays: kernel vs plain comparisons
 EDGE_RAYS = 1 << 16       # rays on the reject margin, per scene
 EDGE_CULL_RAYS = 1 << 13  # of them, Morton-sorted, through the cull mask
@@ -69,21 +78,6 @@ VARIANT_SRC = "lightpycl_tpu_torch/csrc/intersect_variants.cu"
 TPU_MICRO = "benchmarks/micro_variants.py:173"
 TPU_EPILOGUE = "benchmarks/epilogue_variants.py:120"
 
-# The least time the card could take for a nearest hit: the flops of the
-# kernel's division-free reject test, which every (ray, triangle) pair
-# needs (29: 12 FMAs, 3 multiplies, 2 adds; the exact lines run only for
-# the few pairs a ray that it keeps, and are left out), at the H100 SXM's
-# FP32 peak, or the bytes (o, d, the rows and the mask read once, t and
-# tri written once) at its memory rate; NVIDIA's data sheet at 700 W.
-FLOPS_PER_PAIR = 29
-FP32_FLOP_PER_S = 67e12
-HBM_BYTE_PER_S = 3.35e12
-
-
-def check(cond, what):
-    if not cond:
-        raise AssertionError(f"check failed: {what}")
-
 
 _T0 = time.perf_counter()
 
@@ -98,30 +92,6 @@ def line(phase, **numbers):
 def run(cmd):
     return subprocess.run(cmd, capture_output=True, text=True,
                           check=True).stdout.strip()
-
-
-def cuda_ms(fn, reps=3):
-    """Median wall of `reps` calls of fn on the card (CUDA events), after
-    one warm-up call."""
-    fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    return float(np.median(times))
-
-
-def bound(pairs, n_rays, n_tris, mask_words=0):
-    """(bound_ms, bound_by) of a nearest-hit launch over `pairs` pairs."""
-    t_ops = FLOPS_PER_PAIR * pairs / FP32_FLOP_PER_S
-    t_bytes = (n_rays * 32 + n_tris * 48 + mask_words * 4) / HBM_BYTE_PER_S
-    return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def kept_pairs(mask, n_rays, n_tris, ray_block, tri_tile):
@@ -283,16 +253,6 @@ def same_batched(a, b):
     the ledger."""
     return a.ledger == b.ledger and all(
         np.array_equal(getattr(a, f), getattr(b, f)) for f in BATCH_FIELDS)
-
-
-def bench_rays(n, seed=0):
-    """The bench's intersect rays (bench.py): origins in the unit cube,
-    isotropic directions."""
-    rng = np.random.default_rng(seed)
-    o = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
-    d = rng.normal(size=(n, 3))
-    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
-    return torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda()
 
 
 TRACE_FIELDS = ("hist", "per_detector", "image", "measured_pos",
@@ -1221,7 +1181,6 @@ def example_phases(P, PI):
     on the card at its own default size (LPCL_FORCE_CPU unset), four at a
     time. Returns the (brute, culled) kernel launches of the scripts."""
     import glob
-    import os
 
     repo = os.path.dirname(os.path.abspath(__file__))
     names = sorted(os.path.basename(f) for f in glob.glob(
@@ -1729,11 +1688,7 @@ def multi_device_phases(P, PI, smi):
     ray_mesh = sharding.make_ray_mesh()
     check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
           "phase 26a: a one-rank NCCL group")
-    oe2 = P.optical_elements(n_segments=128, n_radial=32)
-    cfg1_els = [oe2.parabolic_mirror(0.5, 2.0, reflectivity=0.98),
-                oe2.hemisphere(30.0, name="dome")]
-    cfg1_src = P.light_source(center=(0, 0, 0.5), direction=(0, 0, -1),
-                              power=1.0, ray_count=BENCH_RAYS, seed=7)
+    cfg1_els, cfg1_src = config1_elements(), config1_source(BENCH_RAYS)
 
     def both(name, fn, same_fn):
         dev = fn("device")
@@ -1857,6 +1812,53 @@ def multi_device_phases(P, PI, smi):
     return brute, cull
 
 
+# ---- 27. the port's bench entry point --------------------------------------
+BENCH_TIMEOUT_S = 120
+BENCH_PHASE_S = 60
+BENCH_VS_B1 = 0.05
+
+
+def bench_phase(b1_tests_per_s):
+    """Phase 27: `python3 -m lightpycl_tpu_torch.bench` in its own process on
+    this card, as a user runs it: exit code 0 within BENCH_PHASE_S, a line
+    with every key of bench.py's and each timed quantity's median,
+    quartiles and count (at least ten), `value` within BENCH_VS_B1 of phase
+    3's B1 rate, the bowl's cull speed-up above 1 and both kernel modes
+    launched. Returns the line."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "lightpycl_tpu_torch.bench"],
+                          cwd=root, capture_output=True, text=True,
+                          timeout=BENCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        print(f"[27 bench stderr] {proc.stderr[-4000:]}", flush=True)
+    check(proc.returncode == 0, "phase 27: the bench exits 0")
+    text = proc.stdout.strip().splitlines()[-1]
+    print(f"[27 bench line] {text}", flush=True)
+    out = json.loads(text)
+    want = list(BENCH_PY_KEYS) + ["power_limit"] + [
+        f"{q}_{k}" for q in TIMED for k in ("median", "q1", "q3", "n")]
+    missing = [k for k in want if k not in out]
+    check(not missing, f"phase 27: the line holds every key ({missing})")
+    check(all(out[f"{q}_n"] >= 10 for q in TIMED),
+          "phase 27: at least ten samples of each timed quantity")
+    ratio = out["value"] / b1_tests_per_s
+    line("27 bench", wall_s=f"{wall:.1f}", value=f"{out['value']:.4e}",
+         phase3_tests_per_s=f"{b1_tests_per_s:.4e}",
+         value_vs_phase3=f"{ratio:.4f}",
+         cull_speedup_bowl=out["cull_speedup_bowl"],
+         launches=out["kernel_launches"],
+         cull_launches=out["cull_kernel_launches"])
+    check(wall < BENCH_PHASE_S, f"phase 27: under {BENCH_PHASE_S} s")
+    check(abs(ratio - 1) <= BENCH_VS_B1, f"phase 27: value within "
+          f"{BENCH_VS_B1:.0%} of phase 3's B1 rate")
+    check(out["cull_speedup_bowl"] > 1, "phase 27: culling wins on the bowl")
+    check(out["kernel_launches"] > out["cull_kernel_launches"] > 0,
+          "phase 27: the bench launched the kernel, brute and culled")
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -1943,8 +1945,7 @@ def main():
               f"variant {name} at {rpt} rays a thread: no spills")
 
     # ---- 3. B1 kernel vs plain at the bench's intersect shape -------------
-    big = P.optical_elements(256, 256).sphere(5.0, material="terminator",
-                                              name="bigmesh")
+    big = headline_sphere()
     scene, _ = P.build_scene([big], device="cuda")
     n_tris = big.num_triangles
     o, d = bench_rays(BENCH_RAYS)
@@ -1966,8 +1967,9 @@ def main():
         o[:CMP_RAYS], d[:CMP_RAYS], *args))
     T = scene.wu.shape[0]
     b1_bound_ms, b1_bound_by = bound(BENCH_RAYS * T, BENCH_RAYS, T)
+    b1_tests_per_s = BENCH_RAYS * n_tris / b1_ms * 1e3
     line("3 B1 time", kernel_ms=b1_ms, kernel_rays=BENCH_RAYS,
-         kernel_tests_per_s=f"{BENCH_RAYS * n_tris / b1_ms * 1e3:.4e}",
+         kernel_tests_per_s=f"{b1_tests_per_s:.4e}",
          bound_ms=b1_bound_ms, bound_by=b1_bound_by,
          share_of_bound=f"{b1_bound_ms / b1_ms:.4f}",
          plain_ms=b1_plain_ms, plain_rays=CMP_RAYS,
@@ -1975,21 +1977,8 @@ def main():
     del o, d
 
     # ---- scenes of the main path (bench.py configs) ------------------------
-    oe2 = P.optical_elements(n_segments=128, n_radial=32)
-    cfg1_els = [oe2.parabolic_mirror(0.5, 2.0, reflectivity=0.98),
-                oe2.hemisphere(30.0, name="dome")]
-
-    def cfg1_src(n):
-        return P.light_source(center=(0, 0, 0.5), direction=(0, 0, -1),
-                              power=1.0, ray_count=n, seed=7)
-
-    oe_b = P.optical_elements(n_segments=256, n_radial=128)
-    bowl = [oe_b.parabolic_mirror(focus=1.0, diameter=4.0,
-                                  reflectivity=0.95),
-            oe2.hemisphere(radius=100.0, name="dome")]
-    bowl_src = P.CollimatedSource(center=(0, 0, 3.0), direction=(0, 0, -1),
-                                  diameter=3.5, ray_count=BENCH_RAYS,
-                                  power=1.0, seed=3)
+    cfg1_els = config1_elements()
+    bowl, bowl_src = bowl_elements(), bowl_source(BENCH_RAYS)
     oe3 = P.optical_elements(n_segments=32, n_radial=12)
     cfg3_els = [oe3.biconvex_lens(1.0, 0.8, 0.2, ior=1.5),
                 oe3.biconvex_lens(1.5, 0.8, 0.15, ior=1.7).translate(
@@ -2002,7 +1991,7 @@ def main():
     # ---- the main path, counted: the kernel must carry it -----------------
     PI.nearest_hit_cuda.launches = 0
     PI.nearest_hit_cuda.cull_launches = 0
-    res1 = P.Tracer().trace(cfg1_src(BENCH_RAYS), cfg1_els,
+    res1 = P.Tracer().trace(config1_source(BENCH_RAYS), cfg1_els,
                             trace_iterations=8, mode="device")
     tr_b = P.Tracer()
     res_cull = tr_b.trace(bowl_src, bowl, trace_iterations=6, mode="device")
@@ -2022,7 +2011,7 @@ def main():
           "config 1 histogram finite, (36, 18)")
     rates = []
     for _ in range(3):
-        again = P.Tracer().trace(cfg1_src(BENCH_RAYS), cfg1_els,
+        again = P.Tracer().trace(config1_source(BENCH_RAYS), cfg1_els,
                                  trace_iterations=8, mode="device")
         check(np.array_equal(again.hist, res1.hist)
               and np.array_equal(again.per_detector, res1.per_detector)
@@ -2030,7 +2019,7 @@ def main():
               "config 1 repeat run bit-identical")
         rates.append(again.rays_traced / max(again.iterations_run, 1)
                      / max(again.wall_time, 1e-12))
-    small = {b: P.Tracer().trace(cfg1_src(CMP_RAYS), cfg1_els,
+    small = {b: P.Tracer().trace(config1_source(CMP_RAYS), cfg1_els,
                                  trace_iterations=8, mode="device",
                                  backend=b) for b in ("cuda", "torch")}
     check(small["cuda"].ledger == small["torch"].ledger
@@ -2194,7 +2183,8 @@ def main():
               "equal to its plain version")
 
     # ---- 9. where the device time goes (torch.profiler, warm traces) -----
-    for name, src, els in (("config1", cfg1_src(BENCH_RAYS), cfg1_els),
+    for name, src, els in (("config1", config1_source(BENCH_RAYS),
+                            cfg1_els),
                            ("bowl_cull", bowl_src, bowl)):
         split = profile_trace(lambda: P.Tracer().trace(
             src, els, trace_iterations=8, mode="device"))
@@ -2437,18 +2427,22 @@ def main():
     ex_brute, ex_cull = example_phases(P, PI)
     design_brute, design_cull = design_phases(P, PI)
     multi_brute, multi_cull = multi_device_phases(P, PI, smi)
+    torch.cuda.empty_cache()
+    bench = bench_phase(b1_tests_per_s)
+    bench_cull = bench["cull_kernel_launches"]
+    bench_brute = bench["kernel_launches"] - bench_cull
 
     table = {"kernels": [
         {"name": "nearest_hit (B1, brute)", "route": "cuda",
          "source": KERNEL_SRC, "replaces": f"{TPU_KERNEL}:154",
          "launches": (launches - cull_launches + launches4 - cull_launches4
                       + new_brute + spec_brute + oracle_brute + ex_brute
-                      + design_brute + multi_brute),
+                      + design_brute + multi_brute + bench_brute),
          "launches_trace_batched": launches4 - cull_launches4,
          "launches_physics": new_brute, "launches_spectral": spec_brute,
          "launches_oracle_parity": oracle_brute,
          "launches_examples": ex_brute, "launches_design": design_brute,
-         "launches_multi_device": multi_brute,
+         "launches_multi_device": multi_brute, "launches_bench": bench_brute,
          "max_abs_err": b1_err,
          "ms": b1_ms, "plain_ms": b1_plain_ms, "bound_ms": b1_bound_ms,
          "bound_by": b1_bound_by, "share_of_bound": b1_bound_ms / b1_ms,
@@ -2457,12 +2451,13 @@ def main():
         {"name": "nearest_hit (B2, cull)", "route": "cuda",
          "source": KERNEL_SRC, "replaces": f"{TPU_KERNEL}:185",
          "launches": (cull_launches + cull_launches4 + new_cull + spec_cull
-                      + oracle_cull + ex_cull + design_cull + multi_cull),
+                      + oracle_cull + ex_cull + design_cull + multi_cull
+                      + bench_cull),
          "launches_trace_batched": cull_launches4,
          "launches_physics": new_cull, "launches_spectral": spec_cull,
          "launches_oracle_parity": oracle_cull,
          "launches_examples": ex_cull, "launches_design": design_cull,
-         "launches_multi_device": multi_cull,
+         "launches_multi_device": multi_cull, "launches_bench": bench_cull,
          "max_abs_err": b2_err,
          "ms": b2_ms, "plain_ms": b2_plain_ms, "bound_ms": b2_bound_ms,
          "bound_by": b2_bound_by, "share_of_bound": b2_bound_ms / b2_ms,

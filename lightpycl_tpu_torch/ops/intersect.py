@@ -33,6 +33,9 @@ from lightpycl_tpu_torch.ops import _build
 # per cull tile. The cull mask is laid out for exactly this shape.
 RAY_BLOCK = 256
 TRI_TILE = 256
+# Triangles a cp.async pipeline stage holds: csrc/intersect.cu's `kChunk`
+# (a constexpr there; tests/test_torch_bench.py pins the two together).
+TRI_CHUNK = 64
 
 # Relative margin of the kernel's division-free reject test (2^-16 = 256
 # units of f32 roundoff): a pair is skipped only when its fused barycentric

@@ -153,4 +153,13 @@ def trace_mesh2d(scene: Scene, rays: RayBatch, cfg: TraceConfig,
             gen=gen, book=book)
     det, led = reduce_state(det, led, g_tri)
     det, led = reduce_state(det, led, g_ray)
+    if cfg.time_bins > 0:
+        # A fault of the reference, reproduced: its trace_mesh2d starts the
+        # DetectorState without time bins (lightpycl_tpu/parallel/
+        # mesh2d.py:90), so its (1, 1) time map keeps the arrivals whose
+        # flat index did * 1 + 0 is in range, detector 0's, drops the
+        # rest, and its trace_batched broadcasts that one total over every
+        # bin. The port bins them (torch raises on the out-of-range
+        # scatter) and returns the reference's array.
+        det = det._replace(time_hist=det.time_hist[:1].sum().reshape(1, 1))
     return rays, det, led

@@ -684,7 +684,9 @@ class Tracer:
             host = np.split(host.astype(np.float64),
                             np.cumsum([a.numel() for a in parts])[:-1])
             for f, h in zip(DetectorState._fields, host):
-                acc[f] += h.reshape(acc[f].shape)
+                # broadcast as the reference's `+=` does (its mesh2d time
+                # map is (1, 1): parallel/mesh2d.py)
+                acc[f] += h.reshape(getattr(det_b, f).shape)
             per_batch.append(host[1])  # this batch's per_detector
             led64[:] += host[-1]
             if checkpoint_path is not None:

@@ -21,18 +21,17 @@ shapes only) their plain torch version, timed on the host's clock.
 from __future__ import annotations
 
 import argparse
-import time
 
 import numpy as np
 import torch
 
-from lightpycl_tpu_torch.geometry.primitives import optical_elements
+from lightpycl_tpu_torch.bench import (BENCH_RAYS, bench_rays,
+                                       headline_sphere, launch_times_ms)
 from lightpycl_tpu_torch.ops import intersect_variants as IV
 from lightpycl_tpu_torch.tracer.config import TraceConfig
 from lightpycl_tpu_torch.tracer.engine import resolve_device
 from lightpycl_tpu_torch.tracer.scene import build_scene
 
-BENCH_RAYS = 1 << 19
 # -OW * (1 / DW) against -OW / DW: two roundings against one, 1.5 ulp
 RECIP_RTOL = 2.0 ** -22
 
@@ -42,36 +41,18 @@ def bench_inputs(n_rays: int = BENCH_RAYS, n_segments: int = 256,
     """(o, d, wu, wv, ww, n_triangles): the reference scripts' rays and
     sphere (radius 5, terminator) on `device`."""
     device = resolve_device(device)
-    big = optical_elements(n_segments=n_segments, n_radial=n_radial).sphere(
-        radius=5.0, material="terminator")
+    big = headline_sphere(n_segments, n_radial)
     scene, _ = build_scene([big], device=device)
-    rng = np.random.default_rng(seed)
-    o = rng.uniform(-1, 1, (n_rays, 3)).astype(np.float32)
-    d = rng.normal(size=(n_rays, 3))
-    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
-    return (torch.from_numpy(o).to(device), torch.from_numpy(d).to(device),
-            scene.wu, scene.wv, scene.ww, big.num_triangles)
+    o, d = bench_rays(n_rays, seed, device)
+    return o, d, scene.wu, scene.wv, scene.ww, big.num_triangles
 
 
 def _time_ms(fn, reps: int, device: torch.device) -> float:
     """Median time of `reps` calls after one warm-up: CUDA events on the
     card, the host's clock on the CPU."""
     fn()
-    times = []
-    for _ in range(reps):
-        if device.type == "cuda":
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            torch.cuda.synchronize(device)
-            times.append(a.elapsed_time(b))
-        else:
-            t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(times))
+    return float(np.median(launch_times_ms(fn, reps,
+                                           device.type == "cuda")[0]))
 
 
 def run_variants(names, inputs, ray_block: int = 256, reps: int = 3):

@@ -188,6 +188,9 @@ SCRIPT = textwrap.dedent("""
     g, = torch.autograd.grad(diff.band_reflectance(
         [1.38], [h], n_sub=1.52, wavelengths=torch.tensor([0.55])), h)
     assert torch.isfinite(g), g
+    # the port's bench at bench.py's CPU sizes, through the plain versions
+    import lightpycl_tpu_torch.bench
+    assert lightpycl_tpu_torch.bench.main(["--device", "cpu"]) == 0
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "lightpycl_tpu"))
     assert not leaked, leaked

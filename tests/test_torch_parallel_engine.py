@@ -150,18 +150,15 @@ def test_trace_batched_multichip_matches_reference(runs, world):
 
 @pytest.mark.parametrize("world", WORLDS)
 def test_trace_batched_mesh2d_matches_reference(runs, world):
-    """The reference's trace_mesh2d starts its DetectorState without time
-    bins (lightpycl_tpu/parallel/mesh2d.py:90), so its mesh2d time map is
-    one total broadcast over every bin; the port's is binned (it sums to
-    the measured power) and is held to the port's device run instead."""
-    r = runs(world)[0]
-    port = r["batched_mesh2d"]
-    assert_batched(port, ref("batched_mesh2d", world),
-                   tuple(f for f in FIELDS if f != "time_hist"))
-    assert np.allclose(port["time_hist"], r["batched_device"]["time_hist"],
+    """Every field to the reference's, the time map too: the reference's
+    trace_mesh2d starts its DetectorState without time bins
+    (lightpycl_tpu/parallel/mesh2d.py:90), so its mesh2d time map is
+    detector 0's measured power broadcast over every bin, and the port
+    reproduces that array."""
+    port = runs(world)[0]["batched_mesh2d"]
+    assert_batched(port, ref("batched_mesh2d", world))
+    assert np.allclose(port["time_hist"], port["per_detector"][0],
                        rtol=1e-5, atol=1e-7)
-    assert port["time_hist"].sum() == pytest.approx(
-        port["ledger"]["measured"], rel=1e-5)
 
 
 @pytest.mark.parametrize("world", WORLDS)
