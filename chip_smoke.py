@@ -14,7 +14,9 @@ shapes: 32 wavelengths through a coated high reflector in one geometry
 pass, 16 through a dispersive prism wavelength-batched, and the white-light
 Michelson's per-wavelength field planes), the epilogue-variant bench
 (variant_bench.micro_variants / epilogue_variants at the bench's intersect
-shape), BASELINE configs 1-3 against the port's float64 oracle (detected
+shape), the film-stack kernel against its plain version on phase 19's own
+arguments and on stacks built to sit on its guards, BASELINE configs 1-3
+against the port's float64 oracle (detected
 power within 0.1 %, the oracle on its native g++ core where there is one),
 the 30 example scripts that need no multi-device mode (each copied with its
 import root swapped and run in its own process at its default size),
@@ -29,7 +31,7 @@ rays built to sit on their reject margin, from edge_rays.py, and the
 nearest hit on the rays and cull masks that the physics traces and config
 4 really launch it with), and checks the physics
 (power ledger, detected power, statistics of the random branches,
-repeatability, checkpoint resume). It prints the kernel's resources, its
+repeatability, checkpoint resume). It prints the kernels' resources, their
 times beside their bound, and the profiler's split of six warm traces and
 one design step, and each variant instantiation's registers, shared
 memory and CTAs an SM. Any failed check raises, so the script exits non-zero
@@ -75,6 +77,10 @@ BATCH_FIELDS = ("hist", "per_detector", "image", "image_amp", "tri_flux",
 KERNEL_SRC = "lightpycl_tpu_torch/csrc/intersect.cu"
 TPU_KERNEL = "lightpycl_tpu/ops/intersect_pallas.py"
 VARIANT_SRC = "lightpycl_tpu_torch/csrc/intersect_variants.cu"
+FILM_SRC = "lightpycl_tpu_torch/csrc/film_stack.cu"
+# no TPU kernel: the reference's XLA-fused jnp film stack
+FILM_REPLACES = "lightpycl_tpu/physics.py:660"
+FILM_EDGE_RAYS = 1 << 16  # film stacks on the kernel's guards, per depth
 TPU_MICRO = "benchmarks/micro_variants.py:173"
 TPU_EPILOGUE = "benchmarks/epilogue_variants.py:120"
 
@@ -201,7 +207,8 @@ def profile_trace(fn, top=3, span=None):
     profiler, and the device's idle share of that wall. `span` names a
     torch.profiler.record_function range: the profiler lists it as a
     device-side annotation (first to last kernel of each range), given as
-    `span_ms` and kept out of the kernel sums (its kernels are in `rest`)."""
+    `span_ms` and kept out of the kernel sums (its kernels are in `rest`).
+    The film-stack kernel's time, part of `rest`, is `film_kernel_ms`."""
     from torch.profiler import ProfilerActivity, profile
 
     wall = fn().wall_time * 1e3
@@ -210,7 +217,7 @@ def profile_trace(fn, top=3, span=None):
                              ProfilerActivity.CUDA]) as prof:
         res = fn()
         torch.cuda.synchronize()
-    kern, rest, span_ms, tops = 0.0, 0.0, 0.0, []
+    kern, rest, span_ms, film, tops = 0.0, 0.0, 0.0, 0.0, []
     for ev in prof.key_averages():
         if ev.device_type.name != "CUDA":
             continue
@@ -223,10 +230,13 @@ def profile_trace(fn, top=3, span=None):
             kern += ms
         else:
             rest += ms
+            if "film_stack_kernel" in ev.key:
+                film += ms
             tops.append((ms, ev.key[:40].replace(" ", "_")))
     tops.sort(reverse=True)
     out = {"trace_wall_ms": wall, "bounces": res.iterations_run,
            "kernel_ms": kern, "rest_ms": rest, "busy_ms": kern + rest,
+           "film_kernel_ms": film,
            "idle_share": f"{1 - (kern + rest) / wall:.4f}",
            "top_rest": ",".join(f"{k}:{ms:.3f}" for ms, k in tops[:top])}
     if span is not None:
@@ -724,33 +734,55 @@ def same_spectral(a, b):
 
 
 class FilmTap:
-    """While active, wraps physics.multilayer_reflectance, the film stack
+    """While active, wraps spectral.film_stack_reflectance, the film stack
     of the shared spectral step: each call runs inside a
-    torch.profiler.record_function('film_stack') range, and the first
-    call's arguments are kept (cloned) to time the stack alone."""
+    torch.profiler.record_function('film_stack') range, and the first and
+    last calls' arguments are kept (cloned) to hold and time the stack
+    alone."""
 
-    def __init__(self, physics):
-        self.physics, self.args = physics, None
+    def __init__(self, spectral):
+        self.spectral, self.first, self.last = spectral, None, None
 
     def __enter__(self):
-        self.orig = fn = self.physics.multilayer_reflectance
+        self.orig = fn = self.spectral.film_stack_reflectance
 
-        def clone(a):
-            if isinstance(a, torch.Tensor):
-                return a.clone()
-            return [clone(x) for x in a] if isinstance(a, list) else a
-
-        def wrapped(*args):
-            if self.args is None:
-                self.args = [clone(a) for a in args]
+        def wrapped(*args, **kw):
+            kept = [a.clone(memory_format=torch.contiguous_format)
+                    for a in args]
+            if self.first is None:
+                self.first = kept
+            self.last = kept
             with torch.profiler.record_function("film_stack"):
-                return fn(*args)
+                return fn(*args, **kw)
 
-        self.physics.multilayer_reflectance = wrapped
+        self.spectral.film_stack_reflectance = wrapped
         return self
 
     def __exit__(self, *exc):
-        self.physics.multilayer_reflectance = self.orig
+        self.spectral.film_stack_reflectance = self.orig
+
+
+def film_compare(FS, args):
+    """(bit mismatches, max abs error, entries) of the film-stack kernel
+    against its plain version on one call's arguments."""
+    k = FS.film_stack_cuda(*args)
+    p = FS.film_stack_torch(*args)
+    torch.cuda.synchronize()
+    bits = int((k.view(torch.int32) != p.view(torch.int32)).sum())
+    return bits, float((k - p).abs().max()), k.numel()
+
+
+def film_edge_args(L, per_ray):
+    """edge_rays.film_edge_inputs on the card: 65,536 stacks of depth L
+    against 32 wavelengths, or one wavelength a ray."""
+    from edge_rays import film_edge_inputs
+
+    args = [torch.from_numpy(a).cuda()
+            for a in film_edge_inputs(FILM_EDGE_RAYS, L, seed=L)]
+    rng = np.random.default_rng(100 + L)
+    wl = (rng.uniform(0.4, 0.75, FILM_EDGE_RAYS) if per_ray
+          else np.linspace(0.40, 0.75, SPEC_W)[None, :])
+    return args + [torch.from_numpy(wl.astype(np.float32)).cuda()]
 
 
 def counted(PI, fn):
@@ -765,10 +797,11 @@ def counted(PI, fn):
 
 def spectral_phases(P, PI):
     """Phases 19-22: spectral tracing at the repository's spectral benches'
-    shapes. Returns the (brute, culled) kernel launches of the counted
-    traces."""
-    from lightpycl_tpu_torch import physics
+    shapes, and the film-stack kernel against its plain version. Returns
+    the (brute, culled) nearest-hit launches of the counted traces and the
+    film-stack kernel's row of the kernel table."""
     from lightpycl_tpu_torch import spectral as PS
+    from lightpycl_tpu_torch.ops import film_stack as FS
 
     # ---- 19. shared geometry: spectral_bench's shape, unreduced ---------
     els = hr_window(P)
@@ -789,7 +822,9 @@ def spectral_phases(P, PI):
     spec()  # first use
     torch.cuda.reset_peak_memory_stats()
     with LaunchTap(PI, (0, 3)) as tap:
+        FS.film_stack_cuda.launches = 0
         res, brute_s, cull_s = counted(PI, spec)
+        film_s = FS.film_stack_cuda.launches
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     runs = [res, spec(), spec()]
     check(all(same_spectral(res, r) for r in runs[1:]),
@@ -799,6 +834,8 @@ def spectral_phases(P, PI):
           "phase 19 took the shared method (one geometry pass)")
     check(cull_s == SPEC_ITERS and brute_s == 0,
           "phase 19: auto-cull on, one culled launch a bounce")
+    check(film_s == SPEC_ITERS,
+          "phase 19: the film-stack kernel launched once a bounce")
     peak_wl = float(wls[res.detector_spectrum("R").argmax()])
     check(abs(peak_wl - 0.55) < 0.03,
           "phase 19: the high reflector's peak at its design wavelength")
@@ -856,10 +893,63 @@ def spectral_phases(P, PI):
          kept_share=",".join(f"{b}:{n / (2 * SPEC_RAYS * T_s):.5f}"
                              for b, n in kept.items()),
          peak_mem_gib=f"{peak:.3f}", launches=brute_s + cull_s,
-         cull_launches=cull_s, plain_rays=PHYS_CMP_RAYS,
+         cull_launches=cull_s, film_stack_launches=film_s,
+         plain_rays=PHYS_CMP_RAYS,
          plain_wall_s=small["torch"].wall_time,
          kernel_wall_s=small["cuda"].wall_time)
     del small
+
+    # ---- 19 film stack: the kernel against its plain version, on phase
+    #      19's own arguments (its first and last bounce) and on stacks
+    #      built to sit on its guards, bit for bit; its time at phase 19's
+    #      shape beside the plain version's and its bound
+    with FilmTap(PS) as film:
+        spec()
+    worst, entries = 0.0, 0
+    for name, args in (("bounce 0", film.first),
+                       (f"bounce {SPEC_ITERS - 1}", film.last)):
+        bits, err, n = film_compare(FS, args)
+        worst, entries = max(worst, err), entries + n
+        line("19 film stack vs plain", call=repr(name), entries=n,
+             layers=args[3].shape[1], bit_mismatch=bits, max_abs_err=err)
+        check(bits == 0, f"phase 19 film stack, {name}: the kernel bitwise "
+              "equal to its plain version")
+    for L in range(1, 9):
+        for per_ray in (False, True):
+            bits, err, n = film_compare(FS, film_edge_args(L, per_ray))
+            worst, entries = max(worst, err), entries + n
+            line("19 film stack edge", layers=L,
+                 wavelengths="one a ray" if per_ray else SPEC_W,
+                 entries=n, bit_mismatch=bits, max_abs_err=err)
+            check(bits == 0, f"film stack on the guards, {L} layers: the "
+                  "kernel bitwise equal to its plain version")
+    args = film.first
+    C_f, L_f, W_f = args[3].shape[0], args[3].shape[1], args[5].shape[1]
+    film_ms = cuda_ms(lambda: FS.film_stack_cuda(*args))
+    film_plain_ms = cuda_ms(lambda: FS.film_stack_torch(*args))
+    film_bound_ms, film_bound_by = FS.bound_ms(C_f, L_f, W_f)
+    fs_lib = FS.load_kernel()
+    attrs = [ctypes.c_int() for _ in range(4)]
+    check(fs_lib.lpcl_film_stack_resources(*map(ctypes.byref, attrs)) == 0,
+          "film-stack kernel resources readable")
+    regs, smem, local, threads = (a.value for a in attrs)
+    line("19 film stack", slots=C_f, layers=L_f, wavelengths=W_f,
+         kernel_ms=film_ms, plain_ms=film_plain_ms,
+         speedup=f"{film_plain_ms / film_ms:.4f}", bound_ms=film_bound_ms,
+         bound_by=film_bound_by,
+         share_of_bound=f"{film_bound_ms / film_ms:.4f}",
+         entries_held=entries, max_abs_err=worst, launches=film_s,
+         registers=regs, static_smem_bytes=smem, local_bytes=local,
+         threads=threads)
+    film_row = {
+        "name": "film_stack (Airy recursion, B 3)", "route": "cuda",
+        "source": FILM_SRC, "replaces": FILM_REPLACES, "launches": film_s,
+        "max_abs_err": worst, "ms": film_ms, "plain_ms": film_plain_ms,
+        "bound_ms": film_bound_ms, "bound_by": film_bound_by,
+        "share_of_bound": film_bound_ms / film_ms, "library_ms": None,
+        "slots": C_f, "layers": L_f, "wavelengths": W_f,
+        "entries_held": entries}
+    del film, args
 
     # ---- 20. wavelength-batched: dispersive_bench's shape, unreduced -----
     els2 = sf10_prism(P)
@@ -966,16 +1056,16 @@ def spectral_phases(P, PI):
     del w0, w4, a
 
     # ---- 22. where the spectral traces' device time goes -----------------
-    with FilmTap(physics) as film:
+    with FilmTap(PS) as film:
         split = profile_trace(spec, top=6, span="film_stack")
-    film_ms = cuda_ms(lambda: physics.multilayer_reflectance(*film.args))
+    one_ms = cuda_ms(lambda: FS.film_stack_cuda(*film.first))
     del film
     check(split["kernel_ms"] > 0, "phase 19 trace: profiler saw the kernel")
     film_total = split.pop("span_ms")
     check(film_total > 0, "phase 19 trace: profiler saw the film stack")
     line("22 profile shared", film_stack_ms=film_total,
          other_ms=split["busy_ms"] - split["kernel_ms"] - film_total,
-         film_stack_one_bounce_ms=film_ms,
+         film_stack_one_bounce_ms=one_ms,
          kernel_share_of_busy=f"{split['kernel_ms'] / split['busy_ms']:.4f}",
          film_share_of_busy=f"{film_total / split['busy_ms']:.4f}", **split)
     split2 = profile_trace(batched, top=6)
@@ -983,7 +1073,7 @@ def spectral_phases(P, PI):
     line("22 profile batched", film_stack_ms=0.0,
          kernel_share_of_busy=(
              f"{split2['kernel_ms'] / split2['busy_ms']:.4f}"), **split2)
-    return brute_s + brute_b + brute_w, cull_s + cull_b + cull_w
+    return brute_s + brute_b + brute_w, cull_s + cull_b + cull_w, film_row
 
 
 # ---- 23. the float64 oracle's parity contract ---------------------------
@@ -1869,6 +1959,7 @@ def main():
     from edge_rays import edge_rays
     from lightpycl_tpu_torch.ops import _build
     from lightpycl_tpu_torch import variant_bench as VB
+    from lightpycl_tpu_torch.ops import film_stack as FS
     from lightpycl_tpu_torch.ops import intersect as PI
     from lightpycl_tpu_torch.ops import intersect_variants as IV
     from lightpycl_tpu_torch.tracer import step as S
@@ -1889,15 +1980,19 @@ def main():
         lib = load()
         return lib, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         builds = [pool.submit(timed, PI.load_kernel),
-                  pool.submit(timed, IV.load_kernel)]
+                  pool.submit(timed, IV.load_kernel),
+                  pool.submit(timed, FS.load_kernel)]
         lib, b1_build_s = builds[0].result()
         _, variants_build_s = builds[1].result()
+        _, film_build_s = builds[2].result()
     build_s = time.perf_counter() - t0
     line("2 build", seconds=f"{build_s:.3f}",
          intersect_s=f"{b1_build_s:.3f}",
          variants_s=f"{variants_build_s:.3f}",
+         film_stack_s=f"{film_build_s:.3f}",
+         film_stack_library=_build.library_path("film_stack.cu", {}).name,
          library=_build.library_path("intersect.cu", dict(PI._DEFINES)).name,
          variants_library=_build.library_path("intersect_variants.cu",
                                               {}).name)
@@ -1943,6 +2038,14 @@ def main():
               f"{rb} picks {rpt} rays a thread")
         check(p.get("spills") == ("0", "0") and res["local_bytes"] == 0,
               f"variant {name} at {rpt} rays a thread: no spills")
+    # the film-stack kernel: its stack frame is libdevice's trig argument
+    # reduction; no spills
+    film_ptx = [x.strip() for x in _build.ptxas_report("film_stack.cu")
+                if "Used" in x or "spill" in x]
+    for ptx in film_ptx:
+        print(f"[2 ptxas film_stack] {ptx}", flush=True)
+    check(any("0 bytes spill stores, 0 bytes spill loads" in x
+              for x in film_ptx), "film-stack kernel: no spills")
 
     # ---- 3. B1 kernel vs plain at the bench's intersect shape -------------
     big = headline_sphere()
@@ -2340,7 +2443,7 @@ def main():
     line("12 profile config4", **split4)
 
     new_brute, new_cull = physics_phases(P, PI)
-    spec_brute, spec_cull = spectral_phases(P, PI)
+    spec_brute, spec_cull, film_row = spectral_phases(P, PI)
 
     # ---- 18. the epilogue variants (V1, V2): the two bench entry points at
     #          the bench's intersect shape, then each kernel against its
@@ -2465,7 +2568,7 @@ def main():
          "config4_bounces": cfg4_bounces,
          "rays": BENCH_RAYS, "plain_rays": nb,
          "triangles": scene_b.num_triangles_padded},
-    ] + v_entries}
+    ] + v_entries + [film_row]}
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -74,6 +74,15 @@ def _scaled(u: torch.Tensor, lo, hi) -> torch.Tensor:
     return (u.double() * span.double() + lo.double()).to(_F32)
 
 
+def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """sqrt of f32 x correctly rounded to f32, as numpy, XLA and CUDA's
+    sqrtf give it (by way of f64, whose rounding to f32 is exact for a
+    square root). Some CPU builds of torch round an f32 sqrt faithfully,
+    not correctly, one ulp off for many inputs: where s = sqrt(1 - z z)
+    cancels near the pole, that ulp of z moves s by eps / s."""
+    return torch.sqrt(x.double()).to(_F32)
+
+
 def _uniforms(gen: torch.Generator, n: int, k: int):
     """k independent (n,) f32 unit-uniform draws from `gen`, in order."""
     return [torch.rand((n,), generator=gen, dtype=_F32, device=gen.device)
@@ -536,7 +545,7 @@ class AreaSource:
         # the local hemisphere direction, as _directions_local
         ph = 2.0 * math.pi * u[3]
         if self.emission == "lambertian":
-            z = torch.sqrt(u[2])  # pdf(z) = 2 z  ->  I ~ cos(theta)
+            z = _sqrt_rn(u[2])  # pdf(z) = 2 z  ->  I ~ cos(theta)
         elif self.emission == "isotropic":
             z = u[2]
         else:

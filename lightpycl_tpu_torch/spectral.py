@@ -43,6 +43,7 @@ import torch
 
 from lightpycl_tpu_torch import physics
 from lightpycl_tpu_torch.materials import Material
+from lightpycl_tpu_torch.ops.film_stack import film_stack_reflectance
 from lightpycl_tpu_torch.ops.intersect import intersect
 from lightpycl_tpu_torch.parallel import sharding
 from lightpycl_tpu_torch.parallel.distributed import all_reduce_packed, axis
@@ -196,14 +197,10 @@ def spectral_step(scene: Scene, sr: SpectralRays, det: DetectorState,
         ch = torch.where(ent, ch, ch.flip(1))
         wl_row = torch.as_tensor(wavelengths, dtype=_F32,
                                  device=sr.o.device)[None, :]  # (1, W)
-        L = cn.shape[1]
-        # per-ray layer stacks (C, 1) against the wavelength row (1, W):
+        # per-ray layer stacks (C, L) against the wavelength row (1, W):
         # one (C, W) reflectance surface
-        R_film = physics.multilayer_reflectance(
-            sn["cos_i"][:, None], sn["n1"][:, None],
-            [cn[:, l][:, None] for l in range(L)],
-            [ch[:, l][:, None] for l in range(L)],
-            sn["n2"][:, None], wl_row)
+        R_film = film_stack_reflectance(sn["cos_i"], sn["n1"], sn["n2"], cn,
+                                        ch, wl_row, backend=cfg.backend)
         R_film = torch.where(sn["tir"][:, None], 1.0, R_film)
         R = torch.where(ch.amax(dim=1)[:, None] > 0.0, R_film, R)
 

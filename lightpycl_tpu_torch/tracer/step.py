@@ -46,6 +46,7 @@ import torch
 
 from lightpycl_tpu_torch import physics
 from lightpycl_tpu_torch.materials import Material
+from lightpycl_tpu_torch.ops.film_stack import film_stack_reflectance
 from lightpycl_tpu_torch.ops.intersect import intersect, nearest_hit_torch
 from lightpycl_tpu_torch.ops.quadric import intersect_quadrics
 from lightpycl_tpu_torch.sources import _frame
@@ -632,10 +633,8 @@ def shade(scene: Scene, rays: RayBatch, t, tri, cfg: TraceConfig,
         cn, ch = attrs["coat_ior"], attrs["coat_thickness"]  # (C, L)
         cn = torch.where(ent, cn, cn.flip(1))
         ch = torch.where(ent, ch, ch.flip(1))
-        L = cn.shape[1]
         # max over layers: reversal can move the live layer off column 0
-        return ([cn[:, l] for l in range(L)], [ch[:, l] for l in range(L)],
-                ch.amax(dim=1) > 0.0)
+        return cn, ch, ch.amax(dim=1) > 0.0
 
     # dielectric reflectance: bare Fresnel, or the multilayer thin-film
     # R(lambda, theta) where the triangle is coated. Skipped under
@@ -643,9 +642,10 @@ def shade(scene: Scene, rays: RayBatch, t, tri, cfg: TraceConfig,
     # Mueller split below
     R_diel = sn["R"]
     if cfg.has_coatings and not cfg.polarization:
-        cn_l, ch_l, coated = oriented_stack()
-        R_film = physics.multilayer_reflectance(
-            sn["cos_i"], sn["n1"], cn_l, ch_l, sn["n2"], rays.wavelength)
+        cn, ch, coated = oriented_stack()
+        R_film = film_stack_reflectance(
+            sn["cos_i"], sn["n1"], sn["n2"], cn, ch, rays.wavelength,
+            backend=cfg.backend)
         # under substrate TIR the stack analysis gives |r| = 1; force it
         # exactly so complex64 roundoff can't leak power into the
         # (garbage-direction) refracted slot
@@ -744,7 +744,8 @@ def shade(scene: Scene, rays: RayBatch, t, tri, cfg: TraceConfig,
             # coated dielectric lanes: the stack's characteristic-matrix
             # split replaces the bare Fresnel Mueller split (complex rs/rp
             # cross terms carry film and TIR retardation)
-            cn_l, ch_l, coated = oriented_stack()
+            cn, ch, coated = oriented_stack()
+            cn_l, ch_l = list(cn.unbind(1)), list(ch.unbind(1))
             film_r, film_t = physics.polarized_film_split(
                 *S, sn["cos_i"], sn["n1"], cn_l, ch_l, sn["n2"],
                 rays.wavelength)

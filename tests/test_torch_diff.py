@@ -34,7 +34,8 @@ from lightpycl_tpu_torch.geometry.mesh import GeoObject
 from lightpycl_tpu_torch.materials import Material
 from lightpycl_tpu_torch.tracer.rays import RayBatch
 from lightpycl_tpu_torch.tracer.scene import Scene, build_scene
-from torch_port_common import CPU, leaves, port_default_cpu  # noqa: F401
+from torch_port_common import (CPU, leaves, port_default_cpu,  # noqa: F401
+                               same_rows)
 
 torch.set_num_threads(1)
 
@@ -211,8 +212,10 @@ class TestIntersectAndTraceParity:
                                    atol=1e-6)
 
     def test_trace_diff_escaped_matches_reference(self, scenes):
-        # op by op on both sides (the reference's jit fuses differently
-        # and moves ties between equal-power slots)
+        # op by op on both sides; the escaped rays as sets: children of
+        # equal power tie in the compaction, and one ulp of a power (the
+        # reference's fused multiply-adds on some hosts) moves a ray to
+        # another slot
         ref, _, _ = scenes
         rr = RD.collimated_bundle(LOSS_SIZE["n_rays"], 0.6)
         out_r, (eo, ed, ep) = RD.trace_diff(ref, rr, RCFG, 4,
@@ -220,15 +223,16 @@ class TestIntersectAndTraceParity:
         out_p, (po, pd_, pp) = PD.trace_diff(
             Scene.from_reference(ref, CPU), RayBatch.from_reference(rr, CPU),
             PCFG, 4, collect_escaped=True)
-        ep = np.asarray(ep)
-        np.testing.assert_allclose(pp.numpy(), ep, rtol=0,
-                                   atol=1e-5 * ep.max())
-        live = ep > 0.0   # the escaped rays; other slots carry no power
-        assert live.sum() > 150
-        np.testing.assert_allclose(po.numpy()[live], np.asarray(eo)[live],
-                                   rtol=0, atol=1e-5)
-        np.testing.assert_allclose(pd_.numpy()[live], np.asarray(ed)[live],
-                                   rtol=0, atol=1e-5)
+        ep, pp = np.asarray(ep), pp.numpy()
+        assert pp.shape == ep.shape
+        # the escaped rays; other slots carry no power
+        live_r, live_p = ep > 0.0, pp > 0.0
+        assert live_r.sum() == live_p.sum() > 150
+        rows = lambda o, d, p, m: np.concatenate(  # noqa: E731
+            [np.asarray(o), np.asarray(d), np.asarray(p)[:, None]],
+            axis=1)[m].astype(np.float64)
+        same_rows(rows(eo, ed, ep, live_r), rows(po, pd_, pp, live_p),
+                  np.array([1e-5] * 6 + [1e-5 * ep.max()]))
         np.testing.assert_array_equal(out_p.alive.numpy(),
                                       np.asarray(out_r.alive))
 
@@ -307,17 +311,43 @@ class TestDiffTrace:
 
 class TestGradients:
     def test_ad_matches_finite_differences(self):
+        # The meshed loss is smooth only piecewise: as an argument moves, a
+        # ray that meets a facet edge picks the other facet and the loss
+        # steps (along c1 here by up to ~3e-4 against a slope of ~0.9), so
+        # one central difference at h = 2e-3 lands a few percent off, by
+        # where the steps fall. The port's AD is held to jax.grad of the
+        # reference's loss (op by op) at the same point, and to a
+        # difference quotient that averages the steps: the least-squares
+        # slope of the loss over 2 K points x +- h_k, h_k = w k / K (the
+        # mean of the central differences at h_k weighted by h_k^2),
+        # itself converged: equal at w and 2 w.
         loss = PD.make_spot_loss(**LOSS_SIZE)
-        c1, c2, zp = 0.55, -0.1, 4.0
-        ts = leaves(c1, c2, zp)
+        args = (0.55, -0.1, 4.0)
+        ts = leaves(*args)
         g = torch.autograd.grad(loss(*ts), ts)
-        h = 2e-3
+        _, gr = jax.value_and_grad(RD.make_spot_loss(**LOSS_SIZE).__wrapped__,
+                                   argnums=(0, 1, 2))(*args)
+        for a, b in zip(g, gr):
+            assert float(a) == pytest.approx(float(b), rel=1e-5, abs=1e-7)
+        K, w = 10, 5e-3
         with torch.no_grad():
-            for i, (args_p, args_m) in enumerate([
-                ((c1 + h, c2, zp), (c1 - h, c2, zp)),
-                ((c1, c2 + h, zp), (c1, c2 - h, zp)),
-                ((c1, c2, zp + h), (c1, c2, zp - h)),
-            ]):
-                fd = (float(loss(*args_p)) - float(loss(*args_m))) / (2 * h)
-                assert float(g[i]) == pytest.approx(fd, rel=2e-2,
-                                                    abs=1e-4), i
+            for i in range(3):
+                cd = {}
+
+                def slope(width):
+                    hs = width * np.arange(1, K + 1) / K
+                    for h in hs:
+                        if h not in cd:
+                            hi, lo = list(args), list(args)
+                            hi[i] += h
+                            lo[i] -= h
+                            cd[h] = (float(loss(*hi))
+                                     - float(loss(*lo))) / (2 * h)
+                    return (sum(h * h * cd[h] for h in hs)
+                            / float(np.sum(hs * hs)))
+
+                s1, s2 = slope(w), slope(2 * w)
+                assert s1 == pytest.approx(s2, rel=1e-2, abs=1e-4), i
+                for fd in (s1, s2):
+                    assert float(g[i]) == pytest.approx(fd, rel=2e-2,
+                                                        abs=1e-4), i

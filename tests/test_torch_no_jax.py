@@ -122,6 +122,13 @@ SCRIPT = textwrap.dedent("""
     acc = sum(led[k] for k in ("measured", "absorbed", "escaped", "culled"))
     assert abs(acc.sum() + res.final_live_power - 1.0) < 1e-5, led
     assert 0.2 < analysis.chromaticity([0.45, 0.55], [1.0, 1.0])[1] < 0.4
+    # the film-stack kernel's module: its plain version on CPU tensors
+    from lightpycl_tpu_torch.ops import film_stack
+    R = film_stack.film_stack_reflectance(
+        torch.full((4,), 0.8), torch.ones(4), torch.full((4,), 1.52),
+        torch.full((4, 2), 1.38), torch.full((4, 2), 0.1),
+        torch.full((1, 3), 0.55))
+    assert R.shape == (4, 3) and film_stack.film_stack_cuda.launches == 0
     # the float64 oracle (native core and numpy path), utils, paraxial,
     # every file format, the full analysis and the reference-named modules
     from lightpycl_tpu_torch import native, paraxial, utils

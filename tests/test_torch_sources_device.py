@@ -13,6 +13,7 @@ import torch
 from lightpycl_tpu import sources as RS
 from lightpycl_tpu_torch import sources as PS
 from lightpycl_tpu_torch.io.rayfile import RayFileData, RayFileSource
+from lightpycl_tpu_torch.sources import halton_sequence
 from lightpycl_tpu_torch.tracer.step import make_generator
 
 torch.set_num_threads(1)
@@ -35,6 +36,49 @@ def assert_rays_close(ref, port, **tol):
         p = p.numpy()
         assert p.dtype == np.float32 and p.shape == r.shape
         assert np.allclose(p, r, **tol), np.abs(p - r).max()
+
+
+EPS32 = 2.0 ** -24   # float32 unit roundoff
+
+
+def area_dirs_f64(src, u3, u4):
+    """AreaSource's direction formula (_directions_local, then the frame
+    sum) in float64 on the float32 values both packages compute alike:
+    the frame rows, z = sqrt(u3) (or u3) and the phase 2 pi u4, each one
+    correctly rounded float32 operation; and the per-ray bound on either
+    package's float32 result. s = sqrt(1 - z z) cancels near the pole:
+    the rounding of z z (none where it is fused into the subtraction) is
+    at most eps z^2 and that of 1 - z z at most eps s^2, so s^2 carries
+    eps (z^2 + s^2) = eps, s carries eps / (2 s) from it and 2 eps from
+    its own sqrt (one ulp: some CPU builds of torch round a float32 sqrt
+    faithfully, not correctly). The rest is at most 8 eps: cos / sin
+    within 2 eps each and one rounding of s cos, s sin (3 sqrt(2) eps
+    through a unit frame row), three roundings of the frame sum of terms
+    whose magnitudes add up to at most 1."""
+    u3 = np.asarray(u3, np.float32)
+    u4 = np.asarray(u4, np.float32)
+    F = np.asarray(PS._frame(src.direction), np.float32).astype(np.float64)
+    z = (np.sqrt(u3) if src.emission == "lambertian" else u3)
+    z = z.astype(np.float32).astype(np.float64)
+    ph = (np.float32(2.0 * np.pi) * u4).astype(np.float64)
+    s = np.sqrt(np.maximum(0.0, 1.0 - z * z))
+    d = ((s * np.cos(ph))[:, None] * F[0] + (s * np.sin(ph))[:, None] * F[1]
+         + z[:, None] * F[2])
+    # s = 0 only at z = 1, where 1 - z z is 0 exactly on both sides
+    bound = EPS32 * (1.0 / (2.0 * np.maximum(s, 2.0 ** -12)) + 10.0)
+    return d, bound[:, None]
+
+
+def assert_area_dirs(src, u3, u4, ref_d, port_d):
+    """Each package's directions within the bound of area_dirs_f64 of the
+    float64 value, and the two within the sum of both bounds."""
+    d64, bound = area_dirs_f64(src, u3, u4)
+    r = np.asarray(ref_d).astype(np.float64)
+    p = port_d.numpy().astype(np.float64)
+    assert port_d.dtype == torch.float32 and p.shape == r.shape == d64.shape
+    assert np.all(np.abs(r - d64) <= bound), np.abs(r - d64).max()
+    assert np.all(np.abs(p - d64) <= bound), np.abs(p - d64).max()
+    assert np.all(np.abs(p - r) <= 2.0 * bound), np.abs(p - r).max()
 
 
 SOURCES = {
@@ -73,6 +117,10 @@ def test_map_on_jax_uniforms_matches_reference(name):
     u = jax_uniforms(key, N, SOURCES[name][1])
     port = make(PS, name)._rays_from_uniforms(u, N, CPU)
     assert_rays_close(ref, port, **TOL)
+    if name.startswith("area"):
+        # the direction's 1 - z z cancels near the pole: each package is
+        # also held to the float64 formula there
+        assert_area_dirs(make(PS, name), u[2], u[3], ref[1], port[1])
     # the port's own draw: unit directions, the source's power, on the
     # generator's device
     o, d, p = make(PS, name).rays_on_device(make_generator(CPU, 1), N)
@@ -111,6 +159,9 @@ def test_deterministic_streams_match_reference(name):
     # f32 cos / sin and the reference's fused multiply-adds leave a few
     # ulps (all coordinates here are below 2 in magnitude)
     assert_rays_close(ref, a, rtol=0, atol=3e-7)
+    if name == "area_halton":
+        assert_area_dirs(port_src, halton_sequence(N, 5),
+                         halton_sequence(N, 7), ref[1], a[1])
 
 
 def categorical_ok(counts, p, n):

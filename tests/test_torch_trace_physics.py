@@ -25,7 +25,7 @@ from lightpycl_tpu_torch.tracer import step as S
 from lightpycl_tpu_torch.tracer.rays import DetectorState, Ledger
 from lightpycl_tpu_torch.tracer.scene import Scene
 from torch_port_common import (CPU, both_cfg, bounce_key, port_batch,
-                               ref_batch, reference_uniforms)
+                               ref_batch, reference_uniforms, same_rows)
 
 torch.set_num_threads(1)
 N0, NE = 1.658, 1.486
@@ -155,16 +155,29 @@ SCENES = {
 CASES = [(n, m) for n, (_, modes) in sorted(SCENES.items()) for m in modes]
 
 
-def same_rows(a, b, atol):
-    """Rows of a and b equal as sets, column k within atol[k]."""
-    assert a.shape == b.shape
-    if len(a) == 0:
-        return
-    dist = (np.abs(a[:, None, :] - b[None, :, :]) / atol).max(axis=2)
-    nearest = dist.argmin(axis=0)
-    assert dist[nearest, np.arange(len(b))].max() <= 1.0, \
-        float(dist[nearest, np.arange(len(b))].max())
-    assert len(np.unique(nearest)) == len(b)
+def stokes_turn_at_z_faces(a, b):
+    """The linear Stokes pair's gap that a direction gap implies where the
+    frame is turned into the plane of incidence at faces normal to z (the
+    GRIN rod's exit face and its screen): the s-direction d x z turns by
+    |d_a - d_b| / |d_perp| (refraction scales both by one factor), and
+    (s1, s2) by twice that angle. A measured GRIN ray leaves ~0.01 off
+    the axis after 40 curved float32 steps, so 2 |s_lin| / |d_perp| ~ 1e2
+    carries either package's float32 direction error into Stokes.
+    Columns: pos 0-2, dir 3-5, power 6, Stokes 7-9 (as
+    test_trace_matches_reference's cols)."""
+    out = np.zeros_like(a)
+    d_perp = np.hypot(a[:, 3], a[:, 4])
+    turn = np.linalg.norm(a[:, 3:6] - b[:, 3:6], axis=1) / np.maximum(
+        d_perp, 1e-30)
+    # at |d_perp| <= 1e-6 incidence_s_direction keeps the ray's own basis
+    turn = np.where(d_perp > 1e-6, np.minimum(turn, np.pi / 2), 0.0)
+    out[:, 7:9] = (2.0 * np.hypot(a[:, 7], a[:, 8]) * turn)[:, None]
+    return out
+
+
+# the GRIN rod's Stokes fractions: 2e-5 plus what the two packages'
+# direction gap implies at its faces (stokes_turn_at_z_faces)
+STOKES_ALLOWANCE = {"grin_rod_polarized": stokes_turn_at_z_faces}
 
 
 @pytest.mark.parametrize("name,mode", CASES)
@@ -202,7 +215,7 @@ def test_trace_matches_reference(name, mode):
     atol = np.array([2e-5] * 3 + [3e-6] * 3 + [1e-6] + [2e-5] * 3 + [1e-6]
                     + [1e-4] + [0.5])
     same_rows(cols(ref).astype(np.float64), cols(port).astype(np.float64),
-              atol)
+              atol, STOKES_ALLOWANCE.get(name))
     if kw.get("track_paths"):
         assert np.array_equal(
             np.sort(ref.measured_path.astype(np.int64)),

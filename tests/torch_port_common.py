@@ -4,7 +4,8 @@ test_torch_trace_physics.py) against the JAX package: one cfg resolved by
 the reference engine for both sides, the reference's own random draws as
 the port's uniforms, the field-by-field compare of two ShadeOuts; for the
 design tests, a module fixture that makes the port's default device the
-CPU and float32 leaves to differentiate."""
+CPU and float32 leaves to differentiate; rows of two results compared as
+sets."""
 
 import dataclasses
 
@@ -33,6 +34,21 @@ def port_default_cpu():
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(engine, "resolve_device", lambda device: CPU)
         yield
+
+
+def same_rows(a, b, atol, allowance=None):
+    """Rows of a and b equal as sets, column k within atol[k]; with
+    `allowance`, each matched pair (a row, b row) within atol plus
+    allowance(a rows, b rows), an (n, k) array."""
+    assert a.shape == b.shape
+    if len(a) == 0:
+        return
+    dist = (np.abs(a[:, None, :] - b[None, :, :]) / atol).max(axis=2)
+    nearest = dist.argmin(axis=0)
+    assert len(np.unique(nearest)) == len(b)
+    tol = atol if allowance is None else atol + allowance(a[nearest], b)
+    gap = (np.abs(a[nearest] - b) / tol).max()
+    assert gap <= 1.0, float(gap)
 
 
 def leaves(*xs):
