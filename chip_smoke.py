@@ -81,6 +81,9 @@ FILM_SRC = "lightpycl_tpu_torch/csrc/film_stack.cu"
 # no TPU kernel: the reference's XLA-fused jnp film stack
 FILM_REPLACES = "lightpycl_tpu/physics.py:660"
 FILM_EDGE_RAYS = 1 << 16  # film stacks on the kernel's guards, per depth
+# the card's checks of the film-stack kernel's shortcuts (modulus test,
+# sincosf); chip_smoke alone builds and loads this library
+FILM_CHECKS_SRC = "film_stack_checks.cu"
 TPU_MICRO = "benchmarks/micro_variants.py:173"
 TPU_EPILOGUE = "benchmarks/epilogue_variants.py:120"
 
@@ -471,6 +474,89 @@ def grin_trace(P, dev, n, substeps, iterations):
         trace_iterations=iterations, capacity=8 * n, mode="host")
 
 
+def sass_layer_loop(library, kernel="film_stack_kernel"):
+    """The instructions on the common path of the film-stack kernel's layer
+    loop, from the SASS of its library (`cuobjdump -sass`), by pipe: FMA
+    (FFMA, FMUL, FADD, HFMA2, IMAD), MUFU, control (BRA, BSSY, BSYNC) and
+    the rest. The loop is the shortest one that reads the shared-memory
+    records (LDS); along it a forward branch over a slow path (a CALL, a
+    MUFU.RSQ, local memory, a BREAK out of a special case) is taken, any
+    other falls through. None where the toolkit has no cuobjdump."""
+    from lightpycl_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = run([tool, "-sass", str(library)])
+    body = sass.split(kernel, 1)[1].split("Function :", 1)[0]
+    ins = {int(a, 16): i.strip() for a, i in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", body)}
+    addrs = sorted(ins)
+    loops = []
+    for pc in addrs:
+        m = re.search(r"BRA\s.*?(0x[0-9a-f]+)", ins[pc])
+        if m and int(m.group(1), 16) < pc:
+            head = int(m.group(1), 16)
+            if any("LDS" in ins[a] for a in addrs if head <= a <= pc):
+                loops.append((pc - head, head, pc))
+    _, pc, end = min(loops)
+    slow = ("CALL", "MUFU.RSQ", "LDL", "STL", "BREAK")
+    ops = {}
+    while True:
+        i = ins[pc]
+        op = i.split()[1] if i.startswith("@") else i.split()[0]
+        op = op.split(".")[0]
+        ops[op] = ops.get(op, 0) + 1
+        if pc == end:
+            break
+        m = re.search(r"BRA\s.*?(0x[0-9a-f]+)", i)
+        if m and (not i.startswith("@") or any(
+                k in ins[a] for a in addrs
+                if pc < a < int(m.group(1), 16) for k in slow)):
+            pc = int(m.group(1), 16)
+        else:
+            pc = addrs[addrs.index(pc) + 1]
+    fma = sum(ops.get(k, 0) for k in ("FFMA", "FMUL", "FADD", "HFMA2",
+                                      "IMAD"))
+    ctrl = sum(ops.get(k, 0) for k in ("BRA", "BSSY", "BSYNC"))
+    total = sum(ops.values())
+    return {"layer_loop_instructions": total, "fma_pipe": fma,
+            "mufu": ops.get("MUFU", 0), "control": ctrl,
+            "other": total - fma - ctrl - ops.get("MUFU", 0),
+            "kernel_instructions": len(ins)}
+
+
+class SubstepTap:
+    """While active, wraps tracer.step.nearest_t_rows, the GRIN sub-step
+    path's own-surface check: counts its calls and the nearest-hit kernel
+    launches they make, and keeps (cloned) the first `keep` calls' rays,
+    rows, cfg and result, to hold them to the plain version."""
+
+    def __init__(self, S, PI, keep):
+        self.S, self.PI, self.keep = S, PI, keep
+        self.calls, self.launches, self.kept = 0, 0, []
+
+    def __enter__(self):
+        self.orig = fn = self.S.nearest_t_rows
+
+        def wrapped(o, d, wu, wv, ww, cfg):
+            before = self.PI.nearest_hit_cuda.launches
+            t = fn(o, d, wu, wv, ww, cfg)
+            self.launches += self.PI.nearest_hit_cuda.launches - before
+            self.calls += 1
+            if len(self.kept) < self.keep:
+                self.kept.append((o.contiguous().clone(),
+                                  d.contiguous().clone(), (wu, wv, ww), cfg,
+                                  t.clone()))
+            return t
+
+        self.S.nearest_t_rows = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.S.nearest_t_rows = self.orig
+
+
 def exit_spot(res):
     """(power, centroid (2,), rms radius), power-weighted, of the primary
     beam on detector 0: the rays with more than half the strongest one's
@@ -487,6 +573,8 @@ def exit_spot(res):
 def physics_phases(P, PI):
     """Phases 13-17: the surface and volume physics at full width. Returns
     the (brute, culled) kernel launches of its counted traces."""
+    from lightpycl_tpu_torch.tracer import step as S
+
     # ---- 13. surface physics at full width: polarized, coated, metal,
     #          grating ------------------------------------------------------
     phys_els = physics_scene(P, 256, 256)
@@ -623,12 +711,35 @@ def physics_phases(P, PI):
     PI.nearest_hit_cuda.cull_launches = 0
     with LaunchTap(PI, (1,)) as tap_g:  # inside the rod
         g1 = grin_trace(P, "cuda", BENCH_RAYS, 1, 60)
-    g8 = grin_trace(P, "cuda", BENCH_RAYS, 8, 12)
+    torch.cuda.synchronize()
+    launches_g1 = PI.nearest_hit_cuda.launches
+    with SubstepTap(S, PI, keep=3) as sub:
+        g8 = grin_trace(P, "cuda", BENCH_RAYS, 8, 12)
     torch.cuda.synchronize()
     launches_g = PI.nearest_hit_cuda.launches
     cull_launches_g = PI.nearest_hit_cuda.cull_launches
     hold_to_plain(PI, "16", 1, tap_g.kept[1])
     del tap_g
+    # the sub-step checks ran on the kernel: each call launched it once,
+    # and the kept calls' results equal the plain version bit for bit
+    check(sub.calls > 0 and sub.launches == sub.calls,
+          "phase 16: every sub-step check launched the nearest-hit kernel")
+    for i, (o_s, d_s, rows, cfg_s, t_trace) in enumerate(sub.kept):
+        args = (*rows, cfg_s.eps, cfg_s.eps_bary, cfg_s.max_ray_len)
+        t_plain = PI.nearest_hit_torch(o_s, d_s, *args, ray_block=1 << 16)[0]
+        t_k = PI.nearest_hit_cuda(o_s, d_s, *args)[0]
+        torch.cuda.synchronize()
+        bits = int((t_trace.view(torch.int32)
+                    != t_plain.view(torch.int32)).sum())
+        bits_k = int((t_k.view(torch.int32)
+                      != t_plain.view(torch.int32)).sum())
+        line("16 sub-step launch vs plain", call=i, rays=o_s.shape[0],
+             rows=rows[0].shape[0], hits=int(torch.isfinite(t_trace).sum()),
+             t_bit_mismatch=bits, t_bit_mismatch_relaunch=bits_k)
+        check(bits == 0 and bits_k == 0, f"phase 16 sub-step check {i}: the "
+              "kernel bitwise equal to the plain version")
+    substep_calls, substep_launches = sub.calls, sub.launches
+    del sub
     (_, c1, r1), (_, c8, r8) = exit_spot(g1), exit_spot(g8)
     for r in (g1, g8):
         check(r.power_conservation_error() <= 1e-4, "phase 16 ledger closes")
@@ -648,8 +759,11 @@ def physics_phases(P, PI):
          exit_power_8=g8.detector_power("exit"),
          absorbed_1=g1.ledger["absorbed"], absorbed_8=g8.ledger["absorbed"],
          centroid_diff=float(np.abs(c8 - c1).max()), rms_1=r1, rms_8=r8,
-         wall_1_s=g1.wall_time, wall_8_s=g8.wall_time, launches=launches_g,
-         cull_launches=cull_launches_g)
+         wall_1_s=g1.wall_time, wall_8_s=g8.wall_time,
+         wall_8_below_1=g8.wall_time < g1.wall_time, launches=launches_g,
+         cull_launches=cull_launches_g, launches_1=launches_g1,
+         launches_8=launches_g - launches_g1,
+         substep_launches=substep_launches, substep_calls=substep_calls)
 
     # ---- 17. where the physics trace's device time goes ------------------
     split_p = profile_trace(lambda: P.Tracer().trace(
@@ -733,43 +847,113 @@ def same_spectral(a, b):
                     for f in SPECTRAL_FIELDS))
 
 
-class FilmTap:
-    """While active, wraps spectral.film_stack_reflectance, the film stack
-    of the shared spectral step: each call runs inside a
-    torch.profiler.record_function('film_stack') range, and the first and
-    last calls' arguments are kept (cloned) to hold and time the stack
-    alone."""
+class CallTap:
+    """While active, wraps module.`name`: each call runs inside a
+    torch.profiler.record_function(`span`) range when a span is given, and
+    the first and last calls' arguments are kept (tensors cloned) to make
+    the call again alone. On spectral.film_stack_reflectance (the film
+    stack of the shared spectral step) and spectral.intersect_slots (its
+    nearest hit)."""
 
-    def __init__(self, spectral):
-        self.spectral, self.first, self.last = spectral, None, None
+    def __init__(self, module, name, span=None):
+        self.module, self.name, self.span = module, name, span
+        self.first, self.last = None, None
 
     def __enter__(self):
-        self.orig = fn = self.spectral.film_stack_reflectance
+        self.orig = fn = getattr(self.module, self.name)
+
+        def keep(a):
+            return (a.clone(memory_format=torch.contiguous_format)
+                    if isinstance(a, torch.Tensor) else a)
 
         def wrapped(*args, **kw):
-            kept = [a.clone(memory_format=torch.contiguous_format)
-                    for a in args]
+            kept = ([keep(a) for a in args],
+                    {k: keep(a) for k, a in kw.items()})
             if self.first is None:
                 self.first = kept
             self.last = kept
-            with torch.profiler.record_function("film_stack"):
+            if self.span is None:
+                return fn(*args, **kw)
+            with torch.profiler.record_function(self.span):
                 return fn(*args, **kw)
 
-        self.spectral.film_stack_reflectance = wrapped
+        setattr(self.module, self.name, wrapped)
         return self
 
     def __exit__(self, *exc):
-        self.spectral.film_stack_reflectance = self.orig
+        setattr(self.module, self.name, self.orig)
 
 
-def film_compare(FS, args):
+def film_tap(PS):
+    """The film stack of the shared spectral step, in a 'film_stack'
+    profiler range."""
+    return CallTap(PS, "film_stack_reflectance", span="film_stack")
+
+
+SELECTS = ("tir", "coated", "r_fresnel")
+
+
+def film_compare(FS, args, sel):
     """(bit mismatches, max abs error, entries) of the film-stack kernel
-    against its plain version on one call's arguments."""
-    k = FS.film_stack_cuda(*args)
-    p = FS.film_stack_torch(*args)
+    against its plain version on one call's arguments and the trace's
+    selects `sel`, a dict of SELECTS."""
+    sel = {k: sel[k] for k in SELECTS}
+    k = FS.film_stack_cuda(*args, **sel)
+    p = FS.film_stack_torch(*args, **sel)
     torch.cuda.synchronize()
     bits = int((k.view(torch.int32) != p.view(torch.int32)).sum())
     return bits, float((k - p).abs().max()), k.numel()
+
+
+def edge_selects(n, seed):
+    """Selects for n edge stacks, as the trace gives them: about 60%
+    coated, 20% under TIR, a Fresnel R for the rest."""
+    rng = np.random.default_rng(seed)
+    return {"tir": torch.from_numpy(rng.uniform(size=n) < 0.2).cuda(),
+            "coated": torch.from_numpy(rng.uniform(size=n) < 0.6).cuda(),
+            "r_fresnel": torch.from_numpy(
+                rng.uniform(size=n).astype(np.float32)).cuda()}
+
+
+def load_film_checks():
+    """Build (once) and load csrc/film_stack_checks.cu."""
+    from lightpycl_tpu_torch.ops import _build
+
+    lib = _build.load(FILM_CHECKS_SRC)
+    p, i = ctypes.c_void_p, ctypes.c_int
+    for name, types in (("lpcl_film_modulus_test", [p, p, i, p, p]),
+                        ("lpcl_film_sincos_test", [p, p])):
+        getattr(lib, name).argtypes = types
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def modulus_test():
+    """The film-stack kernel's modulus test (|z| > 1e-20 settled from the
+    sum of the parts' moduli, hypotf only in the band between) against
+    hypotf on the card: 2^24 pairs log-uniform over the band and a decade
+    around it, random signs, and every pair of a set of special values and
+    band edges with their float32 neighbours. Returns (pairs,
+    mismatches)."""
+    rng = np.random.default_rng(9)
+    n = 1 << 24
+    xy = (10.0 ** rng.uniform(-21.5, -19.0, (2, n))
+          * rng.choice([-1.0, 1.0], (2, n))).astype(np.float32)
+    special = np.array([0.0, -0.0, 1e-45, 1.17549435e-38, 9.9e-21, 2.9e-20,
+                        1.45e-20, 4.95e-21, 1e-20, 7.07e-21, 1.4142e-20, 1.0,
+                        3.4e38, np.inf, -np.inf, np.nan], np.float32)
+    special = np.concatenate([special, np.nextafter(special, np.float32(0)),
+                              np.nextafter(special, np.float32(np.inf))])
+    gx, gy = np.meshgrid(special, -special)
+    x = torch.from_numpy(np.concatenate([xy[0], gx.ravel()])).cuda()
+    y = torch.from_numpy(np.concatenate([xy[1], gy.ravel()])).cuda()
+    count = torch.zeros(1, dtype=torch.int64, device="cuda")
+    err = load_film_checks().lpcl_film_modulus_test(
+        x.data_ptr(), y.data_ptr(), x.numel(), count.data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    check(err == 0, "film-stack modulus test launched")
+    torch.cuda.synchronize()
+    return x.numel(), int(count.item())
 
 
 def film_edge_args(L, per_ray):
@@ -783,6 +967,56 @@ def film_edge_args(L, per_ray):
     wl = (rng.uniform(0.4, 0.75, FILM_EDGE_RAYS) if per_ray
           else np.linspace(0.40, 0.75, SPEC_W)[None, :])
     return args + [torch.from_numpy(wl.astype(np.float32)).cuda()]
+
+
+def sincos_test():
+    """sincosf, which the film-stack kernel calls in place of sinf and
+    cosf, against them on every float32 bit pattern on the card: (sine,
+    cosine) mismatches."""
+    count = torch.zeros(2, dtype=torch.int64, device="cuda")
+    err = load_film_checks().lpcl_film_sincos_test(
+        count.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    check(err == 0, "film-stack sincos test launched")
+    torch.cuda.synchronize()
+    return int(count[0]), int(count[1])
+
+
+def morton_vs_slot_order(PI, PS, call):
+    """The shared step's first culled launch made again two ways, from the
+    arguments `call` = (scene, SpectralRays, cfg) of
+    spectral.intersect_slots: in Morton order, scattered back (what the
+    step runs), and in slot order; (t, tri) of every live ray bitwise, the
+    pairs each launch's mask keeps, and each launch's kernel time."""
+    from lightpycl_tpu_torch.tracer import step as S
+
+    scene, sr, cfg = call
+    t_m, tri_m = PS.intersect_slots(scene, sr, cfg)
+    t_s, tri_s = PI.intersect(scene, sr.o, sr.d, cfg, alive=sr.alive)
+    torch.cuda.synchronize()
+    live = sr.alive
+    t_bits = int(((t_m.view(torch.int32) != t_s.view(torch.int32))
+                  & live).sum())
+    tri_bits = int(((tri_m != tri_s) & live).sum())
+    perm = S.morton_permutation(scene, sr)
+    C, T = sr.o.shape[0], scene.wu.shape[0]
+    out = {"rays": C, "live": int(live.sum()),
+           "hits": int(((tri_s >= 0) & live).sum()), "triangles": T,
+           "t_bit_mismatch": t_bits, "tri_mismatch": tri_bits}
+    rows = (scene.wu, scene.wv, scene.ww, cfg.eps, cfg.eps_bary,
+            cfg.max_ray_len)
+    for name, idx in (("slot", None), ("morton", perm)):
+        o, d, a = ((sr.o, sr.d, sr.alive) if idx is None else
+                   (sr.o[idx].contiguous(), sr.d[idx].contiguous(),
+                    sr.alive[idx]))
+        mask = PI.block_tile_mask(scene, o, d, cfg.max_ray_len, alive=a)
+        n = kept_pairs(mask, C, T, PI.RAY_BLOCK, PI.TRI_TILE)
+        out[f"kept_share_{name}"] = f"{n / (C * T):.5f}"
+        out[f"kernel_ms_{name}"] = cuda_ms(
+            lambda: PI.nearest_hit_cuda(o, d, *rows, mask=mask))
+    line("19 morton vs slot order", **out)
+    check(t_bits == 0 and tri_bits == 0, "phase 19: the Morton-ordered "
+          "launch, scattered back, bitwise equal to the slot-order launch")
+    return out
 
 
 def counted(PI, fn):
@@ -821,7 +1055,8 @@ def spectral_phases(P, PI):
 
     spec()  # first use
     torch.cuda.reset_peak_memory_stats()
-    with LaunchTap(PI, (0, 3)) as tap:
+    with LaunchTap(PI, (0, 3)) as tap, \
+            CallTap(PS, "intersect_slots") as slots:
         FS.film_stack_cuda.launches = 0
         res, brute_s, cull_s = counted(PI, spec)
         film_s = FS.film_stack_cuda.launches
@@ -876,6 +1111,8 @@ def spectral_phases(P, PI):
         hold_to_plain(PI, "19", bounce, launch)
     T_s = tap.kept[0][0].wu.shape[0]
     del tap, launch, scene, lo, mask
+    morton = morton_vs_slot_order(PI, PS, slots.first[0])
+    del slots
     small = {b: spec(PHYS_CMP_RAYS, cull=False, backend=b)
              for b in ("cuda", "torch")}
     check(same_spectral(small["cuda"], small["torch"]),
@@ -892,6 +1129,8 @@ def spectral_phases(P, PI):
          kept_pairs=",".join(f"{b}:{n}" for b, n in kept.items()),
          kept_share=",".join(f"{b}:{n / (2 * SPEC_RAYS * T_s):.5f}"
                              for b, n in kept.items()),
+         morton_kept_share_0=morton["kept_share_morton"],
+         slot_order_kept_share_0=morton["kept_share_slot"],
          peak_mem_gib=f"{peak:.3f}", launches=brute_s + cull_s,
          cull_launches=cull_s, film_stack_launches=film_s,
          plain_rays=PHYS_CMP_RAYS,
@@ -900,34 +1139,60 @@ def spectral_phases(P, PI):
     del small
 
     # ---- 19 film stack: the kernel against its plain version, on phase
-    #      19's own arguments (its first and last bounce) and on stacks
-    #      built to sit on its guards, bit for bit; its time at phase 19's
-    #      shape beside the plain version's and its bound
-    with FilmTap(PS) as film:
+    #      19's own arguments (its first and last bounce, with the trace's
+    #      selects and, for the first, every ray computed) and on stacks
+    #      built to sit on its guards (with the trace's selects and every
+    #      ray computed), bit for bit; its time at phase 19's shape beside
+    #      the plain version's and its bound, every ray computed (the
+    #      kernel line's `ms`) and with the trace's selects; its modulus
+    #      test against hypotf
+    with film_tap(PS) as film:
         spec()
+    every = FS.every_ray(film.first[0][0].shape[0], device="cuda")
     worst, entries = 0.0, 0
-    for name, args in (("bounce 0", film.first),
-                       (f"bounce {SPEC_ITERS - 1}", film.last)):
-        bits, err, n = film_compare(FS, args)
+    for name, (args, kw) in (("bounce 0", film.first),
+                             (f"bounce {SPEC_ITERS - 1}", film.last),
+                             ("bounce 0, every ray", (film.first[0], every))):
+        bits, err, n = film_compare(FS, args, kw)
         worst, entries = max(worst, err), entries + n
         line("19 film stack vs plain", call=repr(name), entries=n,
-             layers=args[3].shape[1], bit_mismatch=bits, max_abs_err=err)
+             layers=args[3].shape[1], bit_mismatch=bits, max_abs_err=err,
+             computed_rays=FS.computed_rays(kw["tir"], kw["coated"]))
         check(bits == 0, f"phase 19 film stack, {name}: the kernel bitwise "
               "equal to its plain version")
     for L in range(1, 9):
         for per_ray in (False, True):
-            bits, err, n = film_compare(FS, film_edge_args(L, per_ray))
-            worst, entries = max(worst, err), entries + n
-            line("19 film stack edge", layers=L,
-                 wavelengths="one a ray" if per_ray else SPEC_W,
-                 entries=n, bit_mismatch=bits, max_abs_err=err)
-            check(bits == 0, f"film stack on the guards, {L} layers: the "
-                  "kernel bitwise equal to its plain version")
-    args = film.first
+            for folded in (False, True):
+                args = film_edge_args(L, per_ray)
+                sel = (edge_selects(FILM_EDGE_RAYS, L) if folded else
+                       FS.every_ray(FILM_EDGE_RAYS, device="cuda"))
+                bits, err, n = film_compare(FS, args, sel)
+                worst, entries = max(worst, err), entries + n
+                line("19 film stack edge", layers=L,
+                     wavelengths="one a ray" if per_ray else SPEC_W,
+                     selects=folded, entries=n, bit_mismatch=bits,
+                     max_abs_err=err)
+                check(bits == 0, f"film stack on the guards, {L} layers: "
+                      "the kernel bitwise equal to its plain version")
+    pairs, wrong = modulus_test()
+    line("19 film stack modulus test", pairs=pairs, mismatch=wrong)
+    check(wrong == 0, "film stack: the settled modulus test == hypotf")
+    sin_bad, cos_bad = sincos_test()
+    line("19 film stack sincos test", floats=1 << 32, sin_mismatch=sin_bad,
+         cos_mismatch=cos_bad)
+    check(sin_bad == 0 and cos_bad == 0,
+          "film stack: sincosf == sinf, cosf on every float32")
+    args, kw = film.first
+    sel = {k: kw[k] for k in SELECTS}
     C_f, L_f, W_f = args[3].shape[0], args[3].shape[1], args[5].shape[1]
-    film_ms = cuda_ms(lambda: FS.film_stack_cuda(*args))
-    film_plain_ms = cuda_ms(lambda: FS.film_stack_torch(*args))
+    computed = FS.computed_rays(sel["tir"], sel["coated"])
+    film_ms = cuda_ms(lambda: FS.film_stack_cuda(*args, **every))
+    film_sel_ms = cuda_ms(lambda: FS.film_stack_cuda(*args, **sel))
+    film_plain_ms = cuda_ms(lambda: FS.film_stack_torch(*args, **every))
+    film_plain_sel_ms = cuda_ms(lambda: FS.film_stack_torch(*args, **sel))
     film_bound_ms, film_bound_by = FS.bound_ms(C_f, L_f, W_f)
+    bound_sel_ms, bound_sel_by = FS.bound_ms(C_f, L_f, W_f,
+                                             computed=computed)
     fs_lib = FS.load_kernel()
     attrs = [ctypes.c_int() for _ in range(4)]
     check(fs_lib.lpcl_film_stack_resources(*map(ctypes.byref, attrs)) == 0,
@@ -938,9 +1203,17 @@ def spectral_phases(P, PI):
          speedup=f"{film_plain_ms / film_ms:.4f}", bound_ms=film_bound_ms,
          bound_by=film_bound_by,
          share_of_bound=f"{film_bound_ms / film_ms:.4f}",
+         computed_rays=computed, kernel_ms_with_selects=film_sel_ms,
+         plain_ms_with_selects=film_plain_sel_ms,
+         bound_ms_with_selects=bound_sel_ms,
+         bound_by_with_selects=bound_sel_by,
+         share_of_bound_with_selects=f"{bound_sel_ms / film_sel_ms:.4f}",
          entries_held=entries, max_abs_err=worst, launches=film_s,
          registers=regs, static_smem_bytes=smem, local_bytes=local,
          threads=threads)
+    # ms / plain_ms / bound_ms: every ray computed, a workload fixed by the
+    # shape alone; the trace's own call (uncoated and TIR rays skipped)
+    # under *_with_selects
     film_row = {
         "name": "film_stack (Airy recursion, B 3)", "route": "cuda",
         "source": FILM_SRC, "replaces": FILM_REPLACES, "launches": film_s,
@@ -948,8 +1221,10 @@ def spectral_phases(P, PI):
         "bound_ms": film_bound_ms, "bound_by": film_bound_by,
         "share_of_bound": film_bound_ms / film_ms, "library_ms": None,
         "slots": C_f, "layers": L_f, "wavelengths": W_f,
-        "entries_held": entries}
-    del film, args
+        "computed_rays": computed, "ms_with_selects": film_sel_ms,
+        "plain_ms_with_selects": film_plain_sel_ms,
+        "bound_ms_with_selects": bound_sel_ms, "entries_held": entries}
+    del film, args, kw, sel, every
 
     # ---- 20. wavelength-batched: dispersive_bench's shape, unreduced -----
     els2 = sf10_prism(P)
@@ -1056,16 +1331,25 @@ def spectral_phases(P, PI):
     del w0, w4, a
 
     # ---- 22. where the spectral traces' device time goes -----------------
-    with FilmTap(PS) as film:
+    with film_tap(PS) as film:
         split = profile_trace(spec, top=6, span="film_stack")
-    one_ms = cuda_ms(lambda: FS.film_stack_cuda(*film.first))
-    del film
+    args, kw = film.first
+    sel = {k: kw[k] for k in SELECTS}
+    every = FS.every_ray(args[0].shape[0], device="cuda")
+    one_ms = cuda_ms(lambda: FS.film_stack_cuda(*args, **sel))
+    one_all_ms = cuda_ms(lambda: FS.film_stack_cuda(*args, **every))
+    bound_all_ms, _ = FS.bound_ms(args[3].shape[0], args[3].shape[1],
+                                  args[5].shape[1])
+    del film, args, kw, sel, every
     check(split["kernel_ms"] > 0, "phase 19 trace: profiler saw the kernel")
     film_total = split.pop("span_ms")
     check(film_total > 0, "phase 19 trace: profiler saw the film stack")
     line("22 profile shared", film_stack_ms=film_total,
          other_ms=split["busy_ms"] - split["kernel_ms"] - film_total,
          film_stack_one_bounce_ms=one_ms,
+         film_stack_one_bounce_every_ray_ms=one_all_ms,
+         film_stack_share_of_bound_every_ray=(
+             f"{bound_all_ms / one_all_ms:.4f}"),
          kernel_share_of_busy=f"{split['kernel_ms'] / split['busy_ms']:.4f}",
          film_share_of_busy=f"{film_total / split['busy_ms']:.4f}", **split)
     split2 = profile_trace(batched, top=6)
@@ -1980,18 +2264,21 @@ def main():
         lib = load()
         return lib, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         builds = [pool.submit(timed, PI.load_kernel),
                   pool.submit(timed, IV.load_kernel),
-                  pool.submit(timed, FS.load_kernel)]
+                  pool.submit(timed, FS.load_kernel),
+                  pool.submit(timed, load_film_checks)]
         lib, b1_build_s = builds[0].result()
         _, variants_build_s = builds[1].result()
         _, film_build_s = builds[2].result()
+        _, checks_build_s = builds[3].result()
     build_s = time.perf_counter() - t0
     line("2 build", seconds=f"{build_s:.3f}",
          intersect_s=f"{b1_build_s:.3f}",
          variants_s=f"{variants_build_s:.3f}",
          film_stack_s=f"{film_build_s:.3f}",
+         film_checks_s=f"{checks_build_s:.3f}",
          film_stack_library=_build.library_path("film_stack.cu", {}).name,
          library=_build.library_path("intersect.cu", dict(PI._DEFINES)).name,
          variants_library=_build.library_path("intersect_variants.cu",
@@ -2046,6 +2333,8 @@ def main():
         print(f"[2 ptxas film_stack] {ptx}", flush=True)
     check(any("0 bytes spill stores, 0 bytes spill loads" in x
               for x in film_ptx), "film-stack kernel: no spills")
+    census = sass_layer_loop(_build.library_path("film_stack.cu", {}))
+    line("2 sass film_stack", **(census or {"cuobjdump": "not found"}))
 
     # ---- 3. B1 kernel vs plain at the bench's intersect shape -------------
     big = headline_sphere()

@@ -12,19 +12,27 @@ and `step.shade` (one wavelength a ray, reference step.py:804).
 * `film_stack_cuda` launches csrc/film_stack.cu on CUDA tensors (and only
   on them) and counts its launches in `film_stack_cuda.launches`.
 * `film_stack_torch` is the plain version: `physics.multilayer_reflectance`
-  on the same columns. The CPU uses it, and so does
-  TraceConfig(backend="torch") on the card. The kernel performs torch's own
-  operations in torch's order, so the two agree bit for bit on the card.
+  on the same columns, then the trace's two selects. The CPU uses it, and
+  so does TraceConfig(backend="torch") on the card. The kernel performs
+  torch's own operations in torch's order, so the two agree bit for bit on
+  the card.
 * `film_stack_reflectance` dispatches on `backend` as `ops.intersect` does.
 
 Bound on the card: FP32 work, ~60 operations an entry and layer
-(`FLOPS_PER_ENTRY_LAYER`), against (2 L + 3) x 4 bytes read a ray and 4
-bytes written an entry; see `bound_ms`.
+(`FLOPS_PER_ENTRY_LAYER`) of the rays that run the recursion, against
+their (2 L + 3) x 4 bytes read a ray and 4 bytes written an entry; see
+`bound_ms`.
 
 Arguments: cos_i, n1, n_sub (C,) f32; layers_n, layers_h (C, L) f32, layer
 0 next to the incident medium (the caller flips the stack for exiting
 rays); wl either a row (1, W), giving R (C, W), or one wavelength a ray
-(C,), giving R (C,).
+(C,), giving R (C,). Per ray (C,), the trace's selects: `tir` (bool),
+`coated` (bool) and `r_fresnel` (f32). The surface is R where `coated` (1
+where also `tir`: under substrate TIR the stack's |r| is 1, forced exactly
+so that complex64 roundoff cannot leak power into the refracted slot) and
+`r_fresnel` elsewhere; the kernel skips the recursion for the rays that
+do not need it. `every_ray(C)` gives selects under which every ray runs
+it (the surface is then the stack's R).
 """
 
 from __future__ import annotations
@@ -53,7 +61,7 @@ def load_kernel() -> ctypes.CDLL:
     lib = _build.load(_SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = lib.lpcl_film_stack
-    fn.argtypes = [p, p, p, p, p, p, i, i, i, i, p, p]
+    fn.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, p, p]
     fn.restype = ctypes.c_int
     res = lib.lpcl_film_stack_resources
     res.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
@@ -74,9 +82,9 @@ def _shapes(cos_i, layers_n, wl):
     raise ValueError(f"wl must be (C,) or (1, W), got {tuple(wl.shape)}")
 
 
-def _check(name, x, shape, device):
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name}: dtype {x.dtype}, expected torch.float32")
+def _check(name, x, shape, device, dtype=torch.float32):
+    if x.dtype != dtype:
+        raise TypeError(f"{name}: dtype {x.dtype}, expected {dtype}")
     if tuple(x.shape) != tuple(shape):
         raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
     if x.device != device:
@@ -88,9 +96,10 @@ def _check(name, x, shape, device):
                          f"backward (use physics.multilayer_reflectance)")
 
 
-def film_stack_cuda(cos_i, n1, n_sub, layers_n, layers_h, wl):
-    """Launch the CUDA kernel. All CUDA, float32, contiguous, no grad;
-    raises on anything else."""
+def film_stack_cuda(cos_i, n1, n_sub, layers_n, layers_h, wl, tir, coated,
+                    r_fresnel):
+    """Launch the CUDA kernel. All CUDA, contiguous, no grad; float32 but
+    tir and coated (bool); raises on anything else."""
     if cos_i.device.type != "cuda":
         raise ValueError(f"film_stack_cuda needs CUDA tensors, got "
                          f"{cos_i.device}")
@@ -100,8 +109,11 @@ def film_stack_cuda(cos_i, n1, n_sub, layers_n, layers_h, wl):
                            ("n_sub", n_sub, (C,)),
                            ("layers_n", layers_n, (C, L)),
                            ("layers_h", layers_h, (C, L)),
-                           ("wl", wl, (C,) if per_ray else (1, W))):
-        _check(name, x, shape, dev)
+                           ("wl", wl, (C,) if per_ray else (1, W)),
+                           ("tir", tir, (C,)), ("coated", coated, (C,)),
+                           ("r_fresnel", r_fresnel, (C,))):
+        _check(name, x, shape, dev,
+               torch.bool if name in ("tir", "coated") else torch.float32)
     out = torch.empty((C,) if per_ray else (C, W), dtype=torch.float32,
                       device=dev)
     if C == 0 or W == 0:
@@ -112,9 +124,10 @@ def film_stack_cuda(cos_i, n1, n_sub, layers_n, layers_h, wl):
     with torch.cuda.device(dev):  # the launch goes to the current device
         err = lib.lpcl_film_stack(
             cos_i.data_ptr(), n1.data_ptr(), n_sub.data_ptr(),
-            layers_n.data_ptr(), layers_h.data_ptr(), wl.data_ptr(), C, L, W,
-            int(per_ray), out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            layers_n.data_ptr(), layers_h.data_ptr(), wl.data_ptr(),
+            tir.data_ptr(), coated.data_ptr(), r_fresnel.data_ptr(), C, L,
+            W, int(per_ray),
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lpcl_film_stack launch failed: cudaError {err}")
     film_stack_cuda.launches += 1
@@ -124,24 +137,25 @@ def film_stack_cuda(cos_i, n1, n_sub, layers_n, layers_h, wl):
 film_stack_cuda.launches = 0
 
 
-def film_stack_torch(cos_i, n1, n_sub, layers_n, layers_h, wl):
+def film_stack_torch(cos_i, n1, n_sub, layers_n, layers_h, wl, tir, coated,
+                     r_fresnel):
     """Plain torch version: physics.multilayer_reflectance on the columns
-    of the stack, broadcast against the wavelength row (or per ray)."""
+    of the stack, broadcast against the wavelength row (or per ray), then
+    1 under `tir` and `r_fresnel` where not `coated`."""
     C, L, W, per_ray = _shapes(cos_i, layers_n, wl)
-    if per_ray:
-        return physics.multilayer_reflectance(
-            cos_i, n1, [layers_n[:, k] for k in range(L)],
-            [layers_h[:, k] for k in range(L)], n_sub, wl)
-    return physics.multilayer_reflectance(
-        cos_i[:, None], n1[:, None], [layers_n[:, k][:, None]
-                                      for k in range(L)],
-        [layers_h[:, k][:, None] for k in range(L)], n_sub[:, None], wl)
+    col = (lambda x: x) if per_ray else (lambda x: x[:, None])
+    R = physics.multilayer_reflectance(
+        col(cos_i), col(n1), [col(layers_n[:, k]) for k in range(L)],
+        [col(layers_h[:, k]) for k in range(L)], col(n_sub), wl)
+    R = torch.where(col(tir), 1.0, R)
+    return torch.where(col(coated), R, col(r_fresnel))
 
 
-def film_stack_reflectance(cos_i, n1, n_sub, layers_n, layers_h, wl,
-                           backend: str = "auto"):
-    """R of the stack. backend: 'auto' (the kernel on CUDA tensors, the
-    plain version on the CPU), 'cuda' (the kernel; raises on CPU tensors),
+def film_stack_reflectance(cos_i, n1, n_sub, layers_n, layers_h, wl, tir,
+                           coated, r_fresnel, backend: str = "auto"):
+    """R of the stack (with the trace's selects, see the module's
+    docstring). backend: 'auto' (the kernel on CUDA tensors, the plain
+    version on the CPU), 'cuda' (the kernel; raises on CPU tensors),
     'torch' (the plain version anywhere; also under 'jnp', the reference's
     name for its differentiable path, which diff.py's configs carry). The
     kernel has no backward, so 'auto' and 'cuda' refuse a tensor that
@@ -149,7 +163,7 @@ def film_stack_reflectance(cos_i, n1, n_sub, layers_n, layers_h, wl,
     if backend not in ("auto", "cuda", "torch", "jnp"):
         raise ValueError(f"unknown film-stack backend {backend!r} "
                          f"(auto, cuda, torch)")
-    args = (cos_i, n1, n_sub, layers_n, layers_h, wl)
+    args = (cos_i, n1, n_sub, layers_n, layers_h, wl, tir, coated, r_fresnel)
     if backend in ("torch", "jnp"):
         return film_stack_torch(*args)
     if any(x.requires_grad for x in args):
@@ -161,14 +175,31 @@ def film_stack_reflectance(cos_i, n1, n_sub, layers_n, layers_h, wl,
     return film_stack_torch(*args)
 
 
-def bound_ms(C: int, L: int, W: int, peak_flops: float = 67e12,
-             peak_bytes: float = 3.35e12):
+def bound_ms(C: int, L: int, W: int, computed: int | None = None,
+             peak_flops: float = 67e12, peak_bytes: float = 3.35e12):
     """(bound_ms, bound_by) of one call of C rays, L layers and a row of W
-    wavelengths: the larger of its FP32 operations over the card's FP32
-    peak and its bytes (each input read once, the output written once)
-    over its memory rate (H100 SXM: 67 TFLOP/s, 3.35 TB/s)."""
-    flops = float(C) * W * (L * FLOPS_PER_ENTRY_LAYER + 6)
-    nbytes = 4 * (C * (3 + 2 * L) + W + C * W)
+    wavelengths, of which `computed` (default all) run the recursion (the
+    others are uncoated or under TIR): the larger of its FP32 operations
+    over the card's FP32 peak and its bytes (each input of those rays read
+    once, the selects' columns of every ray, the output written once) over
+    its memory rate (H100 SXM: 67 TFLOP/s, 3.35 TB/s)."""
+    n = C if computed is None else computed
+    flops = float(n) * W * (L * FLOPS_PER_ENTRY_LAYER + 6)
+    nbytes = 4 * (n * (3 + 2 * L) + W + C * W) + 6 * C
     t_ops, t_bytes = flops / peak_flops, nbytes / peak_bytes
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
+
+
+def computed_rays(tir, coated) -> int:
+    """How many rays of a call run the recursion: the coated ones not under
+    TIR."""
+    return int((coated & ~tir).sum())
+
+
+def every_ray(C: int, device=None) -> dict:
+    """Selects under which every one of C rays runs the recursion (each
+    coated, none under TIR): the surface is the stack's R itself."""
+    return {"tir": torch.zeros(C, dtype=torch.bool, device=device),
+            "coated": torch.ones(C, dtype=torch.bool, device=device),
+            "r_fresnel": torch.zeros(C, dtype=torch.float32, device=device)}

@@ -191,10 +191,12 @@ def nearest_hit_torch(o, d, wu, wv, ww, eps, eps_b, t_max, mask=None,
 
 
 def nearest_hit(o, d, wu, wv, ww, eps, eps_b, t_max, mask=None,
-                backend: str = "auto"):
+                backend: str = "auto", ray_block: int | None = None):
     """Dispatch: 'cuda' -> the kernel (raises off CUDA), 'torch' -> the
     plain version, 'auto' -> the kernel for CUDA tensors and the plain
-    version for CPU tensors."""
+    version for CPU tensors. `ray_block`: the plain version's ray block
+    (its default when None; the result does not depend on it); the kernel
+    keeps its own."""
     if backend == "auto":
         backend = "cuda" if o.device.type == "cuda" else "torch"
     if backend == "cuda":
@@ -202,7 +204,7 @@ def nearest_hit(o, d, wu, wv, ww, eps, eps_b, t_max, mask=None,
                                 mask=mask)
     if backend == "torch":
         return nearest_hit_torch(o, d, wu, wv, ww, eps, eps_b, t_max,
-                                 mask=mask)
+                                 mask=mask, ray_block=ray_block)
     raise ValueError(f"unknown intersect backend {backend!r} "
                      "(expected 'auto', 'cuda' or 'torch')")
 

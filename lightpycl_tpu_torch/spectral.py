@@ -144,6 +144,25 @@ def _detector_zeros(scene: Scene, cfg: TraceConfig, n_detectors: int,
         time_bins=cfg.time_bins, device=device)
 
 
+def intersect_slots(scene: Scene, sr: SpectralRays, cfg: TraceConfig):
+    """(t, tri) of the bounce's rays in slot order. With cfg.cull the
+    kernel gets them in the Morton order of their origins
+    (`step.morton_permutation`, the order the scalar step sorts its batch
+    into), so that each ray block is compact and the cull mask keeps few
+    (block, tile) pairs; (t, tri) are scattered back to the slots. A ray's
+    hit does not depend on its neighbours in the launch, so this is the
+    slot-order launch's result bit for bit."""
+    if not cfg.cull:
+        return intersect(scene, sr.o, sr.d, cfg, alive=sr.alive)
+    perm = step_mod.morton_permutation(scene, sr)
+    t_m, tri_m = intersect(scene, sr.o[perm], sr.d[perm], cfg,
+                           alive=sr.alive[perm])
+    t, tri = torch.empty_like(t_m), torch.empty_like(tri_m)
+    t[perm] = t_m
+    tri[perm] = tri_m
+    return t, tri
+
+
 def spectral_step(scene: Scene, sr: SpectralRays, det: DetectorState,
                   per_det, led: SpectralLedger, wavelengths,
                   cfg: TraceConfig):
@@ -151,10 +170,11 @@ def spectral_step(scene: Scene, sr: SpectralRays, det: DetectorState,
     (the same physics helpers), power (C, W). `det` takes the row-total
     measured power through the scalar binning
     (`accumulate_detector_arrays`); `per_det` (D, W) keeps the full
-    per-detector spectra. Rays stay in slot order (no Morton reorder): the
-    slot order decides the top-k ties."""
+    per-detector spectra. Rays stay in slot order (the slot order decides
+    the top-k ties); only the culled launch runs in Morton order
+    (`intersect_slots`)."""
     C, W = sr.P.shape
-    t, tri = intersect(scene, sr.o, sr.d, cfg, alive=sr.alive)
+    t, tri = intersect_slots(scene, sr, cfg)
     # exact quadric surfaces are deterministic and achromatic: they merge
     # here as in the scalar step
     t, tri, quad_hit = step_mod.merge_analytic(scene, sr.o, sr.d, t, tri,
@@ -198,11 +218,12 @@ def spectral_step(scene: Scene, sr: SpectralRays, det: DetectorState,
         wl_row = torch.as_tensor(wavelengths, dtype=_F32,
                                  device=sr.o.device)[None, :]  # (1, W)
         # per-ray layer stacks (C, L) against the wavelength row (1, W):
-        # one (C, W) reflectance surface
-        R_film = film_stack_reflectance(sn["cos_i"], sn["n1"], sn["n2"], cn,
-                                        ch, wl_row, backend=cfg.backend)
-        R_film = torch.where(sn["tir"][:, None], 1.0, R_film)
-        R = torch.where(ch.amax(dim=1)[:, None] > 0.0, R_film, R)
+        # one (C, W) reflectance surface, 1 under substrate TIR, the bare
+        # Fresnel R where the triangle is uncoated
+        R = film_stack_reflectance(sn["cos_i"], sn["n1"], sn["n2"], cn, ch,
+                                   wl_row, tir=sn["tir"],
+                                   coated=ch.amax(dim=1) > 0.0,
+                                   r_fresnel=sn["R"], backend=cfg.backend)
 
     is_mirror = hit_valid & (mat == int(Material.MIRROR))
     is_refr = hit_valid & (mat == int(Material.REFRACTIVE))

@@ -47,7 +47,7 @@ import torch
 from lightpycl_tpu_torch import physics
 from lightpycl_tpu_torch.materials import Material
 from lightpycl_tpu_torch.ops.film_stack import film_stack_reflectance
-from lightpycl_tpu_torch.ops.intersect import intersect, nearest_hit_torch
+from lightpycl_tpu_torch.ops.intersect import intersect, nearest_hit
 from lightpycl_tpu_torch.ops.quadric import intersect_quadrics
 from lightpycl_tpu_torch.sources import _frame
 from lightpycl_tpu_torch.tracer.config import TraceConfig
@@ -95,10 +95,11 @@ def morton_order(o, alive, lo, hi):
     return torch.argsort(code, stable=True)
 
 
-def morton_permutation(scene: Scene, rays: RayBatch) -> torch.Tensor:
+def morton_permutation(scene: Scene, rays) -> torch.Tensor:
     """The slot permutation `reorder_rays` applies: Morton order of the
     origins over the box of the scene's valid triangles (padding rows
-    would stretch the box to include the origin)."""
+    would stretch the box to include the origin). `rays`: anything with
+    `o` and `alive` (a RayBatch, spectral.SpectralRays)."""
     valid = torch.any(scene.ww != 0.0, dim=1)[:, None]
     lo = torch.where(valid, scene.v0, 3.4e38).amin(dim=0)
     hi = torch.where(valid, scene.v0, -3.4e38).amax(dim=0)
@@ -250,12 +251,16 @@ def default_hit_attrs(scene: Scene, safe_tri, cfg: TraceConfig):
 def nearest_t_rows(o, d, wu, wv, ww, cfg: TraceConfig):
     """Nearest-hit distance of C rays against a compact set of
     unit-transform rows (no triangle ids): the GRIN sub-step path's
-    own-surface check (TraceConfig.grin_substeps). The plain torch nearest
-    hit, bit-equal to the kernel, so step decisions match the full
-    intersect exactly; the row set is small, so ray blocks are wide."""
+    own-surface check (TraceConfig.grin_substeps). The nearest hit of
+    `ops.intersect` on cfg.backend (the kernel on the card, the plain
+    version on the CPU or under backend='torch'), with the full
+    intersect's predicate and eps, so step decisions match it exactly; no
+    cull mask (the rows are few, so the plain version's ray blocks are
+    wide)."""
     block = max(4096, (1 << 23) // max(int(wu.shape[0]), 1))
-    return nearest_hit_torch(o, d, wu, wv, ww, cfg.eps, cfg.eps_bary,
-                             cfg.max_ray_len, ray_block=block)[0]
+    return nearest_hit(o.contiguous(), d.contiguous(), wu, wv, ww, cfg.eps,
+                       cfg.eps_bary, cfg.max_ray_len, backend=cfg.backend,
+                       ray_block=block)[0]
 
 
 def _cross(a, b):
@@ -643,14 +648,14 @@ def shade(scene: Scene, rays: RayBatch, t, tri, cfg: TraceConfig,
     R_diel = sn["R"]
     if cfg.has_coatings and not cfg.polarization:
         cn, ch, coated = oriented_stack()
-        R_film = film_stack_reflectance(
+        # under substrate TIR the stack analysis gives |r| = 1; the kernel
+        # forces it exactly so complex64 roundoff can't leak power into the
+        # (garbage-direction) refracted slot, and keeps the bare Fresnel R
+        # on uncoated lanes
+        R_diel = film_stack_reflectance(
             sn["cos_i"], sn["n1"], sn["n2"], cn, ch, rays.wavelength,
+            tir=sn["tir"], coated=coated, r_fresnel=R_diel,
             backend=cfg.backend)
-        # under substrate TIR the stack analysis gives |r| = 1; force it
-        # exactly so complex64 roundoff can't leak power into the
-        # (garbage-direction) refracted slot
-        R_film = torch.where(sn["tir"], 1.0, R_film)
-        R_diel = torch.where(coated, R_film, R_diel)
 
     is_mirror = hit_valid & (mat == int(Material.MIRROR))
     is_refr = hit_valid & (mat == int(Material.REFRACTIVE))

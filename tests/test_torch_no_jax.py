@@ -127,7 +127,7 @@ SCRIPT = textwrap.dedent("""
     R = film_stack.film_stack_reflectance(
         torch.full((4,), 0.8), torch.ones(4), torch.full((4,), 1.52),
         torch.full((4, 2), 1.38), torch.full((4, 2), 0.1),
-        torch.full((1, 3), 0.55))
+        torch.full((1, 3), 0.55), **film_stack.every_ray(4))
     assert R.shape == (4, 3) and film_stack.film_stack_cuda.launches == 0
     # the float64 oracle (native core and numpy path), utils, paraxial,
     # every file format, the full analysis and the reference-named modules
