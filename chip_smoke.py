@@ -203,6 +203,21 @@ def _device_ms(ev):
     return ms / 1e3
 
 
+def _device_work(prof, keep=None):
+    """(event, ms) of each op the profiler lists on the device. A host
+    range (a record_function of the program's, `lightpycl.*`, or of this
+    script's) is listed there too, under its own name: not device work,
+    and left out, but for the range named `keep`."""
+    avgs = prof.key_averages()
+    host = {ev.key for ev in avgs if ev.device_type.name != "CUDA"}
+    for ev in avgs:
+        if ev.device_type.name != "CUDA":
+            continue
+        ms = _device_ms(ev)
+        if ms > 0 and (ev.key == keep or ev.key not in host):
+            yield ev, ms
+
+
 def profile_trace(fn, top=3, span=None):
     """Device time of one trace fn() under torch.profiler: the nearest-hit
     kernel's and the rest's (with its `top` largest ops); beside it the
@@ -210,8 +225,10 @@ def profile_trace(fn, top=3, span=None):
     profiler, and the device's idle share of that wall. `span` names a
     torch.profiler.record_function range: the profiler lists it as a
     device-side annotation (first to last kernel of each range), given as
-    `span_ms` and kept out of the kernel sums (its kernels are in `rest`).
-    The film-stack kernel's time, part of `rest`, is `film_kernel_ms`."""
+    `span_ms` and kept out of the kernel sums (its kernels are in `rest`);
+    every other host range is such an annotation too and counts nowhere
+    (`_device_work`). The film-stack kernel's time, part of `rest`, is
+    `film_kernel_ms`."""
     from torch.profiler import ProfilerActivity, profile
 
     wall = fn().wall_time * 1e3
@@ -221,12 +238,7 @@ def profile_trace(fn, top=3, span=None):
         res = fn()
         torch.cuda.synchronize()
     kern, rest, span_ms, film, tops = 0.0, 0.0, 0.0, 0.0, []
-    for ev in prof.key_averages():
-        if ev.device_type.name != "CUDA":
-            continue
-        ms = _device_ms(ev)
-        if ms <= 0:
-            continue
+    for ev, ms in _device_work(prof, keep=span):
         if ev.key == span:
             span_ms += ms
         elif "nearest_hit_kernel" in ev.key:
@@ -1650,7 +1662,8 @@ def synced_s(fn):
 def profile_step(fn, top=3):
     """One warm call of fn under torch.profiler: the device's busy time,
     its idle share of the call's wall (from a call without the profiler),
-    the number of device kernels and the `top` largest ops."""
+    the number of device kernels and the `top` largest ops (host ranges
+    left out, `_device_work`)."""
     from torch.profiler import ProfilerActivity, profile
 
     _, wall = synced_s(fn)
@@ -1659,10 +1672,7 @@ def profile_step(fn, top=3):
         fn()
         torch.cuda.synchronize()
     busy, kernels, tops = 0.0, 0, []
-    for ev in prof.key_averages():
-        ms = _device_ms(ev)
-        if ev.device_type.name != "CUDA" or ms <= 0:
-            continue
+    for ev, ms in _device_work(prof):
         busy += ms
         kernels += ev.count
         tops.append((ms, ev.key[:40].replace(" ", "_")))

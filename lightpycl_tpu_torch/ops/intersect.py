@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from lightpycl_tpu_torch.ops import _build
+from lightpycl_tpu_torch.utils.profiling import count, enabled, span
 
 # CUDA block shape, compiled into the kernel: rays per CTA and triangles
 # per cull tile. The cull mask is laid out for exactly this shape.
@@ -324,7 +325,9 @@ def pack_mask_bits(m: torch.Tensor) -> torch.Tensor:
 def block_tile_mask(scene, o, d, t_max, alive=None):
     """The bit-packed cull mask of rays (o, d) over the scene at the
     kernel's block shape (ray padding as in the reference: dead rays at
-    the origin pointing along (1, 1, 1))."""
+    the origin pointing along (1, 1, 1)). While a profiler records, counts
+    the (ray block, triangle tile) pairs it keeps (`intersect.tiles_kept`)
+    of all of them (`intersect.tiles`)."""
     C = o.shape[0]
     pad = -C % RAY_BLOCK
     if pad:
@@ -333,22 +336,28 @@ def block_tile_mask(scene, o, d, t_max, alive=None):
         d = torch.cat([d, torch.ones((pad, 3), dtype=d.dtype,
                                      device=d.device)])
     lo, hi = pack_aabbs(scene, TRI_TILE)
-    return pack_mask_bits(cull_mask(o, d, lo, hi, RAY_BLOCK, float(t_max),
-                                    alive=alive))
+    reach = cull_mask(o, d, lo, hi, RAY_BLOCK, float(t_max), alive=alive)
+    if enabled():
+        count("intersect.tiles_kept", reach.sum())
+        count("intersect.tiles", reach.numel())
+    return pack_mask_bits(reach)
 
 
 def intersect(scene, o, d, cfg, alive=None):
     """Nearest hit of rays (o, d) over the scene with cfg's eps, eps_bary,
     max_ray_len and backend; with cfg.cull the conservative mask skips
     unreachable (ray block, triangle tile) pairs (identical results)."""
-    mask = (block_tile_mask(scene, o, d, cfg.max_ray_len, alive=alive)
-            if cfg.cull else None)
+    mask = None
+    if cfg.cull:
+        with span("step.cull_mask"):
+            mask = block_tile_mask(scene, o, d, cfg.max_ray_len, alive=alive)
     o, d = o.contiguous(), d.contiguous()
     if intersect.observer is not None:
         intersect.observer(scene, o, d, cfg, alive, mask)
-    return nearest_hit(o, d, scene.wu, scene.wv, scene.ww, cfg.eps,
-                       cfg.eps_bary, cfg.max_ray_len, mask=mask,
-                       backend=cfg.backend)
+    with span("step.nearest_hit"):
+        return nearest_hit(o, d, scene.wu, scene.wv, scene.ww, cfg.eps,
+                           cfg.eps_bary, cfg.max_ray_len, mask=mask,
+                           backend=cfg.backend)
 
 
 # A measuring script's tap on what a trace really gives the kernel: when

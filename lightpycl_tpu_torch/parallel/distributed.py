@@ -34,6 +34,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from lightpycl_tpu_torch.utils.profiling import span
+
 log = logging.getLogger("lightpycl_tpu_torch.distributed")
 
 
@@ -137,7 +139,8 @@ def all_reduce_packed(tensors, group, op=dist.ReduceOp.SUM):
     ONE collective (flattened into one buffer and split back). Returns new
     tensors of the same shapes."""
     flat = torch.cat([t.reshape(-1).to(torch.float32) for t in tensors])
-    dist.all_reduce(flat, op=op, group=group)
+    with span("parallel.all_reduce"):
+        dist.all_reduce(flat, op=op, group=group)
     out, k = [], 0
     for t in tensors:
         out.append(flat[k:k + t.numel()].reshape(t.shape))

@@ -67,7 +67,7 @@ from lightpycl_tpu_torch.tracer import step as step_mod
 from lightpycl_tpu_torch.tracer.config import TraceConfig
 from lightpycl_tpu_torch.tracer.rays import DetectorState, Ledger, RayBatch
 from lightpycl_tpu_torch.tracer.scene import Scene, build_scene
-from lightpycl_tpu_torch.utils.profiling import trace_profile
+from lightpycl_tpu_torch.utils.profiling import span, spanned, trace_profile
 
 log = logging.getLogger("lightpycl_tpu_torch")
 
@@ -305,6 +305,7 @@ class Tracer:
 
     # -- tracing -------------------------------------------------------------
 
+    @spanned("engine.call")
     def trace(self, source, elements: Optional[Sequence[GeoObject]] = None,
               trace_iterations: Optional[int] = None,
               capacity: Optional[int] = None, mode: str = "host",
@@ -352,16 +353,19 @@ class Tracer:
         self._check_time_bins(cfg)
         _check_fluorescence(cfg)
         if rays is None:
-            origins, dirs, powers = source.sample()
-            wls = (source.sample_wavelengths()
-                   if hasattr(source, "sample_wavelengths") else None)
-            rays = RayBatch.from_arrays(origins, dirs, powers,
-                                        ior_env=cfg.ior_env, capacity=capacity,
-                                        wavelengths=wls,
-                                        stokes=getattr(source, "stokes", None),
-                                        device=self.device)
-        cfg = self._resolve_ray_len(cfg, origins=rays.o.cpu().numpy())
-        cfg = self._resolve_cull(cfg, mode, rays=rays)
+            with span("engine.sample"):
+                origins, dirs, powers = source.sample()
+                wls = (source.sample_wavelengths()
+                       if hasattr(source, "sample_wavelengths") else None)
+                rays = RayBatch.from_arrays(
+                    origins, dirs, powers, ior_env=cfg.ior_env,
+                    capacity=capacity, wavelengths=wls,
+                    stokes=getattr(source, "stokes", None),
+                    device=self.device)
+        with span("engine.resolve_ray_len"):
+            cfg = self._resolve_ray_len(cfg, origins=rays.o.cpu().numpy())
+        with span("engine.resolve_cull"):
+            cfg = self._resolve_cull(cfg, mode, rays=rays)
         if cfg.cull and not self._scene_sorted:
             # spatially-sorted triangle tiles are what make the cull bite
             self.set_elements(self.elements, spatial_sort=True)
@@ -372,10 +376,11 @@ class Tracer:
         emitted = float(torch.sum(torch.where(rays.alive, rays.power, 0.0)))
         det = self._detector_zeros(cfg)
         led = Ledger.start(emitted, device=self.device)
-        log.info(
-            "trace start: %d rays (capacity %d), %d triangles, %d "
-            "iterations, mode=%s, device=%s", int(rays.alive.sum()), C,
-            self.num_triangles, cfg.trace_iterations, mode, self.device)
+        if log.isEnabledFor(logging.INFO):  # the count reads the device
+            log.info(
+                "trace start: %d rays (capacity %d), %d triangles, %d "
+                "iterations, mode=%s, device=%s", int(rays.alive.sum()), C,
+                self.num_triangles, cfg.trace_iterations, mode, self.device)
         with trace_profile(profile_logdir):
             result = self._run(mode, rays, det, led, cfg, C, emitted,
                                record_paths, mesh=mesh)
@@ -385,6 +390,7 @@ class Tracer:
             result.wall_time, result.tests_per_second, result.rays_per_second)
         return result
 
+    @spanned("engine.call")
     def trace_spectral(self, source, wavelengths, elements=None,
                        weights=None, trace_iterations=None,
                        capacity=None, mode: str = "device", mesh=None,
@@ -436,22 +442,25 @@ class Tracer:
                     "or 'auto'")
             method = "batched"
         if rays is None:
-            origins, dirs, powers = source.sample()
-            # a source's own spectrum would be overridden by the grid
-            wl_attr = getattr(source, "wavelength", None)
-            if isinstance(wl_attr, (tuple, list, np.ndarray)):
-                log.warning("trace_spectral ignores the source's own "
-                            "wavelength spectrum; the `wavelengths` grid "
-                            "+ `weights` define the spectral sampling")
-            rays = RayBatch.from_arrays(origins, dirs, powers,
-                                        ior_env=cfg.ior_env,
-                                        capacity=capacity,
-                                        device=self.device)
+            with span("engine.sample"):
+                origins, dirs, powers = source.sample()
+                # a source's own spectrum would be overridden by the grid
+                wl_attr = getattr(source, "wavelength", None)
+                if isinstance(wl_attr, (tuple, list, np.ndarray)):
+                    log.warning("trace_spectral ignores the source's own "
+                                "wavelength spectrum; the `wavelengths` grid "
+                                "+ `weights` define the spectral sampling")
+                rays = RayBatch.from_arrays(origins, dirs, powers,
+                                            ior_env=cfg.ior_env,
+                                            capacity=capacity,
+                                            device=self.device)
         if method not in ("auto", "shared", "batched"):
             raise ValueError(f"trace_spectral method must be 'auto', "
                              f"'shared' or 'batched', got {method!r}")
-        cfg = self._resolve_ray_len(cfg, origins=rays.o.cpu().numpy())
-        cfg = self._resolve_cull(cfg, mode, rays=rays)
+        with span("engine.resolve_ray_len"):
+            cfg = self._resolve_ray_len(cfg, origins=rays.o.cpu().numpy())
+        with span("engine.resolve_cull"):
+            cfg = self._resolve_cull(cfg, mode, rays=rays)
         # flux and time maps are wavelength-integrated: the shared path
         # deposits row-total power, the batched path runs the scalar maps
         self._check_flux_map(cfg, mode)
@@ -569,6 +578,7 @@ class Tracer:
             n_tris=self.scene.num_triangles_padded if cfg.flux_map else 0,
             time_bins=cfg.time_bins, device=self.device)
 
+    @spanned("engine.call")
     def trace_batched(self, source, total_rays: int, batch_size: int,
                       elements: Optional[Sequence[GeoObject]] = None,
                       checkpoint_path: Optional[str] = None,
@@ -618,14 +628,16 @@ class Tracer:
         dev = self.device
         if cfg.cull is None:
             # auto-cull from a small device sample of the source's bundle
-            _, d_s, _ = source.rays_on_device(
-                step_mod.make_generator(dev, seed ^ 0xC011),
-                min(2048, batch_size))
-            cfg = self._resolve_cull(cfg, mode, dirs=d_s.cpu().numpy())
+            with span("engine.resolve_cull"):
+                _, d_s, _ = source.rays_on_device(
+                    step_mod.make_generator(dev, seed ^ 0xC011),
+                    min(2048, batch_size))
+                cfg = self._resolve_cull(cfg, mode, dirs=d_s.cpu().numpy())
         center = getattr(source, "center", None)
-        cfg = self._resolve_ray_len(
-            cfg, origins=None if center is None else np.asarray(
-                center, np.float64).reshape(1, 3))
+        with span("engine.resolve_ray_len"):
+            cfg = self._resolve_ray_len(
+                cfg, origins=None if center is None else np.asarray(
+                    center, np.float64).reshape(1, 3))
         if cfg.cull and not self._scene_sorted:
             self.set_elements(self.elements, spatial_sort=True)
         scene = self.scene
@@ -709,28 +721,33 @@ class Tracer:
             if max_batches is not None and done >= max_batches:
                 break
             done += 1
-            rays = assemble(b)
-            if mode == "device":
-                led_b = Ledger.start(torch.sum(rays.power * rays.alive),
-                                     device=dev)
-                rays, det_b, led_b, iters_b = step_mod.trace_loop(
-                    scene, rays, zeros, led_b, cfg, cfg.trace_iterations,
-                    rng_words=(seed, b, 0x5757))
-                leftover = torch.sum(torch.where(rays.alive, rays.power,
-                                                 0.0))
-            else:
-                rays = sharding.padded_for(rays, n_ray_ranks)
-                _, det_b, led_b, leftover = self._trace_sharded(
-                    mode, mesh, scene, rays, cfg, key=(seed, b, 0x5757))
-                iters_b = cfg.trace_iterations
-            batch_iters.append(iters_b)
-            # rays still alive when the batch retires are booked as culled
-            led_b = led_b._replace(culled=led_b.culled + leftover)
-            if pending is not None:
-                consume(*pending)
-            pending = (b, det_b, led_b)
+            with span("engine.batch"):
+                with span("engine.assemble"):
+                    rays = assemble(b)
+                if mode == "device":
+                    led_b = Ledger.start(torch.sum(rays.power * rays.alive),
+                                         device=dev)
+                    rays, det_b, led_b, iters_b = step_mod.trace_loop(
+                        scene, rays, zeros, led_b, cfg, cfg.trace_iterations,
+                        rng_words=(seed, b, 0x5757))
+                    leftover = torch.sum(torch.where(rays.alive, rays.power,
+                                                     0.0))
+                else:
+                    rays = sharding.padded_for(rays, n_ray_ranks)
+                    _, det_b, led_b, leftover = self._trace_sharded(
+                        mode, mesh, scene, rays, cfg, key=(seed, b, 0x5757))
+                    iters_b = cfg.trace_iterations
+                batch_iters.append(iters_b)
+                # rays still alive when the batch retires are booked as
+                # culled
+                led_b = led_b._replace(culled=led_b.culled + leftover)
+                if pending is not None:
+                    with span("engine.readback"):
+                        consume(*pending)
+                pending = (b, det_b, led_b)
         if pending is not None:
-            consume(*pending)
+            with span("engine.readback"):
+                consume(*pending)
         wall = time.perf_counter() - t0
         slots = (capacity or batch_size) * sum(batch_iters)
         result = TraceResult(

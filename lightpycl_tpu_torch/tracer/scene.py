@@ -23,6 +23,7 @@ import torch
 from lightpycl_tpu_torch.geometry.mesh import GeoObject
 from lightpycl_tpu_torch.materials import Material
 from lightpycl_tpu_torch.tracer.rays import tensor_from_array
+from lightpycl_tpu_torch.utils.profiling import count, span, spanned
 
 
 class Scene(NamedTuple):
@@ -111,6 +112,7 @@ def _morton3_np(q: np.ndarray) -> np.ndarray:
     return spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
 
 
+@spanned("scene.build")
 def build_scene(objects: Sequence[GeoObject], pad_to: int = 256,
                 spatial_sort: bool = False,
                 device: torch.device | str = "cuda"
@@ -125,6 +127,7 @@ def build_scene(objects: Sequence[GeoObject], pad_to: int = 256,
     """
     if not objects:
         raise ValueError("scene needs at least one optical element")
+    count("scene.builds", 1)
     tv_list, mat_list, ior_list, refl_list, det_list = [], [], [], [], []
     iorb_list = []
     iorc_list = []
@@ -219,24 +222,27 @@ def build_scene(objects: Sequence[GeoObject], pad_to: int = 256,
                 (t, 1))
         for t, layers in coat_stacks])
     if spatial_sort:
-        c = tv.mean(axis=1)
-        lo, hi = c.min(axis=0), c.max(axis=0)
-        qn = np.clip((c - lo) / np.maximum(hi - lo, 1e-30) * 1023.0, 0, 1023)
-        order = np.argsort(_morton3_np(qn), kind="stable")
-        tv = tv[order]
-        mat_np, ior_np, iorb_np = mat_np[order], ior_np[order], iorb_np[order]
-        iorc_np = iorc_np[order]
-        absorb_np, refl_np, det_np = (absorb_np[order], refl_np[order],
-                                      det_np[order])
-        axis_np, ret_np = axis_np[order], ret_np[order]
-        gr_np = gr_np[order]
-        g0_np = g0_np[order]
-        mn_np, mk_np = mn_np[order], mk_np[order]
-        bire_np = bire_np[order]
-        smu_np, sg_np = smu_np[order], sg_np[order]
-        rsig_np, rg_np = rsig_np[order], rg_np[order]
-        cior_np, cth_np = cior_np[order], cth_np[order]
-        elem_np = elem_np[order]
+        with span("scene.morton_sort"):
+            c = tv.mean(axis=1)
+            lo, hi = c.min(axis=0), c.max(axis=0)
+            qn = np.clip((c - lo) / np.maximum(hi - lo, 1e-30) * 1023.0,
+                         0, 1023)
+            order = np.argsort(_morton3_np(qn), kind="stable")
+            tv = tv[order]
+            mat_np, ior_np, iorb_np = (mat_np[order], ior_np[order],
+                                       iorb_np[order])
+            iorc_np = iorc_np[order]
+            absorb_np, refl_np, det_np = (absorb_np[order], refl_np[order],
+                                          det_np[order])
+            axis_np, ret_np = axis_np[order], ret_np[order]
+            gr_np = gr_np[order]
+            g0_np = g0_np[order]
+            mn_np, mk_np = mn_np[order], mk_np[order]
+            bire_np = bire_np[order]
+            smu_np, sg_np = smu_np[order], sg_np[order]
+            rsig_np, rg_np = rsig_np[order], rg_np[order]
+            cior_np, cth_np = cior_np[order], cth_np[order]
+            elem_np = elem_np[order]
     T = len(tv)
     v0 = tv[:, 0]
     e1 = tv[:, 1] - tv[:, 0]

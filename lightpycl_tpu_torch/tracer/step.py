@@ -54,6 +54,7 @@ from lightpycl_tpu_torch.tracer.config import TraceConfig
 from lightpycl_tpu_torch.tracer.rays import (DetectorState, Ledger, RayBatch,
                                              norm3)
 from lightpycl_tpu_torch.tracer.scene import Scene
+from lightpycl_tpu_torch.utils.profiling import count, enabled, span
 
 _F32 = torch.float32
 
@@ -1198,17 +1199,25 @@ def bincount_sorted(idx: torch.Tensor, vals: torch.Tensor, n_bins: int):
         s *= 2
     last = torch.ones(n, dtype=torch.bool, device=idx.device)
     last[:-1] = head[1:]
-    out[k[last].long()] = x[last]  # one write per bin
+    with span("step.sync"):  # the bins' count: a host read
+        at = last.nonzero().squeeze(1)
+    out[k[at].long()] = x[at]  # one write per bin
     return out
+
+
+def _upload(values, device):
+    """A small float32 constant on `device`. On a card torch's copy from
+    pageable memory waits for the stream's queued work: a host wait, the
+    span `step.sync`."""
+    with span("step.sync"):
+        return torch.as_tensor(np.asarray(values, np.float32), device=device)
 
 
 def image_flat_indices(hit_point, cfg: TraceConfig):
     """(C,) flat pixel index of each hit on the cfg image plane; points
     outside the grid map to the drop slot nb * nb."""
-    F = torch.as_tensor(np.asarray(_frame(cfg.image_normal), np.float32),
-                        device=hit_point.device)
-    rel = hit_point - torch.as_tensor(
-        np.asarray(cfg.image_center, np.float32), device=hit_point.device)
+    F = _upload(_frame(cfg.image_normal), hit_point.device)
+    rel = hit_point - _upload(cfg.image_center, hit_point.device)
     # elementwise dot, as the reference
     x = torch.sum(rel * F[0], dim=1)
     y = torch.sum(rel * F[1], dim=1)
@@ -1239,8 +1248,8 @@ def accumulate_detector_arrays(det: DetectorState, hit_point, dirs,
     if cfg.hist_mode == "direction":
         v = dirs
     else:  # 'position': direction of the hit point seen from hist_center
-        v = physics.normalize(hit_point - torch.as_tensor(
-            np.asarray(cfg.hist_center, np.float32), device=hit_point.device))
+        v = physics.normalize(hit_point - _upload(cfg.hist_center,
+                                                  hit_point.device))
     az = torch.atan2(v[:, 1], v[:, 0])  # [-pi, pi)
     az = torch.where(az < 0, az + 2.0 * math.pi, az)
     pol = torch.arccos(torch.clamp(v[:, 2], -1.0, 1.0))
@@ -1476,18 +1485,24 @@ def trace_step(scene: Scene, rays: RayBatch, det: DetectorState, led: Ledger,
     (tests feeding the reference's own draws). Returns (rays, det, led,
     aux); aux is None when with_aux is False (the device loop, where the
     reference's compiler drops it as dead code)."""
-    if cfg.cull:
-        rays = reorder_rays(scene, rays)
-    t, tri = intersect(scene, rays.o, rays.d, cfg, alive=rays.alive)
-    t, tri, quad_hit = merge_analytic(scene, rays.o, rays.d, t, tri, cfg)
-    attrs = None
-    if quad_hit is not None:
-        use_q, nq = quad_hit
-        attrs = default_hit_attrs(scene, torch.clamp_min(tri, 0), cfg)
-        attrs["normal"] = torch.where(use_q[:, None], nq, attrs["normal"])
-    return finish_step(scene, rays, t, tri, attrs, det, led, cfg,
-                       with_aux=with_aux, gen=gen, uniforms=uniforms,
-                       roulette_u=roulette_u)
+    with span("step.bounce"):
+        if cfg.cull:
+            with span("step.reorder"):
+                rays = reorder_rays(scene, rays)
+        if enabled():
+            count("step.live_rays", rays.alive.sum())
+            count("step.slots", rays.capacity)
+        t, tri = intersect(scene, rays.o, rays.d, cfg, alive=rays.alive)
+        t, tri, quad_hit = merge_analytic(scene, rays.o, rays.d, t, tri, cfg)
+        attrs = None
+        if quad_hit is not None:
+            use_q, nq = quad_hit
+            attrs = default_hit_attrs(scene, torch.clamp_min(tri, 0), cfg)
+            attrs["normal"] = torch.where(use_q[:, None], nq,
+                                          attrs["normal"])
+        return finish_step(scene, rays, t, tri, attrs, det, led, cfg,
+                           with_aux=with_aux, gen=gen, uniforms=uniforms,
+                           roulette_u=roulette_u)
 
 
 def finish_step(scene: Scene, rays: RayBatch, t, tri, attrs,
@@ -1509,9 +1524,11 @@ def finish_step(scene: Scene, rays: RayBatch, t, tri, attrs,
                              "has_fluorescence / has_roughness require a "
                              "generator")
         uniforms = draw_shade_uniforms(cfg, rays.capacity, gen, rays.device)
-    sh = shade(scene, rays, t, tri, cfg, attrs=attrs, uniforms=uniforms)
+    with span("step.shade"):
+        sh = shade(scene, rays, t, tri, cfg, attrs=attrs, uniforms=uniforms)
     if book:
-        det = accumulate_detector(det, sh, rays, cfg, tri=tri)
+        with span("step.accumulate"):
+            det = accumulate_detector(det, sh, rays, cfg, tri=tri)
     rr_delta = 0.0
     if cfg.roulette_threshold > 0.0:
         if roulette_u is None:
@@ -1522,7 +1539,8 @@ def finish_step(scene: Scene, rays: RayBatch, t, tri, attrs,
                                     dtype=_F32,
                                     device=sh.child_power.device)
         sh, rr_delta = roulette(sh, cfg, roulette_u)
-    new_rays, culled = compact(sh, rays.capacity, cfg)
+    with span("step.compact"):
+        new_rays, culled = compact(sh, rays.capacity, cfg)
     if book:
         culled = culled + rr_delta + sh.policy_dropped
         led = Ledger(
@@ -1534,6 +1552,13 @@ def finish_step(scene: Scene, rays: RayBatch, t, tri, attrs,
         )
     aux = _measured_aux(sh, rays, new_rays) if with_aux else None
     return new_rays, det, led, aux
+
+
+def _short_of_target(led: Ledger, target) -> bool:
+    """The device loop's early-exit read, one host sync a bounce: is the
+    accounted power still below target x emitted?"""
+    with span("step.sync"):
+        return bool(led.accounted() < target * led.emitted)
 
 
 def trace_loop(scene: Scene, rays: RayBatch, det: DetectorState, led: Ledger,
@@ -1548,7 +1573,7 @@ def trace_loop(scene: Scene, rays: RayBatch, det: DetectorState, led: Ledger,
     target = torch.tensor(cfg.dissipation_target, dtype=_F32,
                           device=led.emitted.device)
     i = 0
-    while i < iterations and bool(led.accounted() < target * led.emitted):
+    while i < iterations and _short_of_target(led, target):
         gen = (make_generator(rays.device, *words, i) if cfg.needs_rng
                else None)
         rays, det, led, _ = trace_step(scene, rays, det, led, cfg,
