@@ -140,8 +140,10 @@ def trace_mesh2d(scene: Scene, rays: RayBatch, cfg: TraceConfig,
         gen = (step_mod.make_generator(dev, *words, my_ray, i)
                if cfg.needs_rng else None)
         if cfg.cull:
-            # per-bounce Morton resort on the global box: each ray block is
-            # a coherent patch, so each shard's own tile mask bites
+            # per-bounce Morton resort on the global box, 20 bits a axis
+            # (step.morton_order: a dense beam under a wide box would share
+            # one 10-bit code per thousands of rays): each ray block is a
+            # tight patch, so each shard's own tile mask bites
             rays = rays.permuted(step_mod.morton_order(rays.o, rays.alive,
                                                        box_lo, box_hi))
         t_loc, i_loc = intersect(scene, rays.o, rays.d, cfg,

@@ -75,24 +75,45 @@ def make_generator(device, *words: int) -> torch.Generator:
 # Ray reordering (coherence for the cull mask)
 # --------------------------------------------------------------------------
 
+_MORTON_MAX = (1 << 20) - 1  # 20 bits a axis: see morton_order
+_MORTON_DEAD = 1 << 62  # above every live code (< 2**60)
+
+
 def _spread3(x):
-    """Spread 10 bits to every 3rd bit (Morton encoding helper)."""
-    x = (x | (x << 16)) & 0x030000FF
-    x = (x | (x << 8)) & 0x0300F00F
-    x = (x | (x << 4)) & 0x030C30C3
-    x = (x | (x << 2)) & 0x09249249
+    """Spread 20 bits to every 3rd bit of an int64 (Morton encoding
+    helper). 20, not the reference's 10: a batch much denser than the
+    scene box's 10-bit cells would leave each ray block scattered over a
+    cell (morton_order)."""
+    x = (x | (x << 32)) & 0x001F00000000FFFF
+    x = (x | (x << 16)) & 0x001F0000FF0000FF
+    x = (x | (x << 8)) & 0x100F00F00F00F00F
+    x = (x | (x << 4)) & 0x10C30C30C30C30C3
+    x = (x | (x << 2)) & 0x1249249249249249
     return x
 
 
 def morton_order(o, alive, lo, hi):
     """Stable permutation sorting rays by the Morton code of their origins
-    (10 bits/axis over [lo, hi]); dead rays sort to the end. Codes are held
-    in int64 (the reference's uint32 values, exactly)."""
+    (20 bits/axis over [lo, hi], a 60-bit code in int64); dead rays sort to
+    the end, live ties keep their slot order.
+
+    The reference quantises to 10 bits a axis. Over a scene box much wider
+    than the beam (a 3.5-wide beam under a radius-100 dome: cells 0.2
+    across) thousands of rays share a 10-bit code, the stable sort leaves
+    them in sampling order, and every 256-ray block spans a whole cell, so
+    the cull mask keeps every tile such a block could reach. At 20 bits a
+    cell holds far fewer rays than a block, and a block is a tight patch:
+    on config 4's 4M-ray batches the mask keeps 2.1% and 5.3% of the
+    (block, tile) pairs at the two bounces, against 3.8% and 7.9% at 10
+    bits. The code's top 30 bits order cells as the 10-bit code does (up
+    to the rounding of the two quantisations), so this order refines the
+    reference's."""
     span = torch.clamp_min(hi - lo, 1e-20)
-    q = torch.clamp((o - lo) / span * 1023.0, 0.0, 1023.0).to(torch.int64)
+    top = float(_MORTON_MAX)
+    q = torch.clamp((o - lo) / span * top, 0.0, top).to(torch.int64)
     code = (_spread3(q[:, 0]) | (_spread3(q[:, 1]) << 1)
             | (_spread3(q[:, 2]) << 2))
-    code = torch.where(alive, code, 0xFFFFFFFF)
+    code = torch.where(alive, code, _MORTON_DEAD)
     return torch.argsort(code, stable=True)
 
 
