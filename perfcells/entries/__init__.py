@@ -1,8 +1,10 @@
 """How each entry point of the program is driven, one file per entry kind,
 named by a configuration's `entry`. Each defines `Entry(run)` with:
 
-* `rays_per_call` (source rays a call traces) and `capacity` (ray slots a
-  bounce: a call's bounces are its `rays_traced / capacity`);
+* `rays_per_call` (source rays a call traces), `source_rays` (the source
+  rays this rank's first launch of a call holds, in its first slots) and
+  `capacity` (ray slots a bounce: a call's bounces are its
+  `rays_traced / capacity`);
 * `warm()`: one call of the window's shapes, during set-up;
 * `call(i)`: the window's call i, seeded `seed + i`, returning the
   program's TraceResult;

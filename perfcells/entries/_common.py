@@ -15,9 +15,13 @@ DIRECTIVITY = {
 }
 
 
+# semantics a configuration may leave out, at the program's defaults
+DEFAULTS = {"ior_env": 1.0, "power_cutoff": 0.0}
+
+
 def opts(config: dict) -> dict:
     """The semantics the reference follows, from the configuration."""
-    sem = dict(config["semantics"])
+    sem = {**DEFAULTS, **config["semantics"]}
     sem["iterations"] = int(config["call"]["trace_iterations"])
     sem["hist_center"] = tuple(sem["hist_center"])
     return sem
@@ -25,13 +29,22 @@ def opts(config: dict) -> dict:
 
 def program_overrides(config: dict) -> dict:
     """The same semantics as the program's TraceConfig fields."""
-    sem = config["semantics"]
-    return dict(trace_iterations=int(config["call"]["trace_iterations"]),
+    sem = opts(config)
+    return dict(trace_iterations=sem["iterations"],
                 eps=sem["eps"], eps_bary=sem["eps_bary"],
                 dissipation_target=sem["dissipation_target"],
                 hist_azimuth_bins=sem["hist_azimuth_bins"],
                 hist_polar_bins=sem["hist_polar_bins"],
-                hist_center=tuple(sem["hist_center"]))
+                hist_center=sem["hist_center"],
+                ior_env=float(sem["ior_env"]),
+                power_cutoff=float(sem["power_cutoff"]))
+
+
+def capacity_multiple(config: dict) -> int:
+    """The ray slots a bounce holds, as a multiple of the rays a batch
+    starts with (`call.capacity_multiple`, default 1): the headroom a
+    splitting scene's children need."""
+    return int(config["call"].get("capacity_multiple", 1))
 
 
 def program_source(light: dict, ray_count: int, seed: int):

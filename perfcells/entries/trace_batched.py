@@ -7,7 +7,14 @@ reference to trace again. The check redraws `check.sample_rays` rays of one
 batch of the job (drawn from the seed), with the same uniforms the
 program's device sampler drew, traces them through the reference and
 compares the shares of the emitted power; the job's histogram is left out
-(a sample's counts spread more than a change in precision moves them)."""
+(a sample's counts spread more than a change in precision moves them).
+A batch books the power still live when it retires as culled, so the
+reference's culled and live power are booked together.
+
+`call.capacity_multiple` (default 1) gives each batch that many times its
+rays in slots, the headroom a splitting scene's children need; the
+reference fits each bounce's children of its sample into the sample's
+share of them (all of them where the sample is the whole batch)."""
 
 from __future__ import annotations
 
@@ -32,7 +39,8 @@ class Entry:
         self.batch = int(run.load["batch_size"])
         self.n_batches = self.total // self.batch
         self.rays_per_call = self.n_batches * self.batch
-        self.capacity = self.batch
+        self.source_rays = self.batch
+        self.capacity = self.batch * _common.capacity_multiple(run.config)
         self.opts = _common.opts(run.config)
         self.kw = _common.program_overrides(run.config)
         self.elements = program_elements(run.arrays)
@@ -43,7 +51,7 @@ class Entry:
         return self.tracer.trace_batched(src, total_rays=total,
                                          batch_size=self.batch,
                                          elements=self.elements, seed=seed,
-                                         **self.kw)
+                                         capacity=self.capacity, **self.kw)
 
     def warm(self):
         self._job(self.batch, self.run.seed + WARM_OFFSET)
@@ -72,9 +80,11 @@ class Entry:
         o, d, p = sampling.collimated_rays(lt["center"], lt["direction"],
                                            lt["diameter"], lt["power"],
                                            u1[idx], u2[idx])
-        r = ref_trace.trace(o, d, p, scene, self.opts, dtype)
+        r = ref_trace.trace(o, d, p, scene, self.opts, dtype,
+                            n * _common.capacity_multiple(self.run.config))
         led = {k: r[k] for k in ("emitted", "measured", "absorbed",
                                  "escaped")}
-        led["culled"] = r["live"]  # a batch books what is left as culled
+        # a batch books what is left as culled
+        led["culled"] = r["culled"] + r["live"]
         return _common.outcome(led, 0.0, r["per_detector"], None,
                                lt["power"])

@@ -216,7 +216,8 @@ def run_cell(cell: str, seed: int, seconds: float, traced: bool,
               file=sys.stderr, flush=True)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    tap = Tap(run.seed + crew.rank, int(run.check["launch_rays"]), RAY_BLOCK)
+    tap = Tap(run.seed + crew.rank, int(run.check["launch_rays"]),
+              entry.source_rays, RAY_BLOCK)
     with tap:
         calls, kept, prof, t_w0 = window(entry, run, seconds, traced, tap,
                                          wl.get("profile", {}), crew)

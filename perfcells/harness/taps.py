@@ -10,8 +10,12 @@ exit; outside a tap the timed path runs untouched.
 * capture: a sample of whole ray blocks of each launch (drawn from the
   run's seed), with the program's rows of the triangles it reports, so
   the check can decode the program's triangle index into geometry; and
-  the live rays of each captured call's first launch (every source ray
-  is live there).
+  the live rays among the source rays' slots of each captured call's
+  first launch (every source ray is live there). The batch puts its
+  source rays in its first `source_rays` slots and its spare capacity
+  after them, dead; a reorder before the launch moves every dead ray
+  behind every live one, so a source ray held dead shows as a dead slot
+  among the first `source_rays` either way.
 * count: each launch's shape and either its alive flags or its cull mask,
   held by reference and reduced to pairs only after the profiled window,
   so that counting adds no device work inside it.
@@ -26,8 +30,10 @@ from perfcells.harness import seeds
 
 
 class Tap:
-    def __init__(self, seed: int, launch_rays: int, ray_block: int = 256):
+    def __init__(self, seed: int, launch_rays: int, source_rays: int,
+                 ray_block: int = 256):
         self.rng = seeds.rng(seed, 0x7A9)
+        self.source_rays = source_rays
         self.blocks = max(1, launch_rays // ray_block)
         self.ray_block = ray_block
         self.capture = False
@@ -60,8 +66,9 @@ class Tap:
     def _observe(self, scene, o, d, cfg, alive, mask):
         self._pending = (scene, alive, mask)
         if self.capture and self._first:
-            n = o.shape[0]
-            self.first_live.append((n if alive is None else alive.sum(), n))
+            n = min(o.shape[0], self.source_rays)
+            self.first_live.append((n if alive is None else alive[:n].sum(),
+                                    n))
         if self.count:
             self.counted.append({
                 "n_rays": o.shape[0], "mask": mask,

@@ -12,10 +12,11 @@ cell's file, `check.limits`):
   program names triangles by its own index; the index is decoded into
   geometry by the triangle's float32 rows (v0, e1, e2), which equal the
   float32 rounding of one reference triangle's and of no other.
-* first_launch_dead_share: of the rays of the first launch of each
-  checked call, the share the program holds dead. Every ray these
-  sources emit carries power, so the reference holds none dead: an exact
-  comparison (a trace that drops part of its batch reads above 0).
+* first_launch_dead_share: of the source rays of the first launch of each
+  checked call (the slots they fill; spare capacity does not count), the
+  share the program holds dead. Every ray these sources emit carries
+  power, so the reference holds none dead: an exact comparison (a trace
+  that drops part of its batch reads above 0).
 * ledger_gap: the largest gap between the two sides' ledger terms, as a
   share of the power emitted.
 * detector_gap: the same for each detector's measured power.
@@ -120,8 +121,8 @@ def judge_launches(captured, scene, tri_index, opts, dtype=None):
 
 
 def first_launch_dead(first_live):
-    """(dead, all) rays of the first launch of each captured call, from
-    the tap's (live, all) counts."""
+    """(dead, all) source rays of the first launch of each captured call,
+    from the tap's (live, all) counts."""
     total = sum(n for _, n in first_live)
     return total - sum(int(live) for live, _ in first_live), total
 

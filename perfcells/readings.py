@@ -49,7 +49,7 @@ def readings(cell, seeds, control_seeds, device="cuda", out=None,
     lines = []
     for seed in seeds:
         run.seed = seed
-        tap = Tap(seed, int(run.check["launch_rays"]))
+        tap = Tap(seed, int(run.check["launch_rays"]), entry.source_rays)
         kept = {}
         with tap:
             for i in sorted(driver.checked_calls(seed, run.check)):

@@ -6,12 +6,14 @@ import json
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
 from perfcells.harness import catalog  # noqa: E402
-from perfcells.tests._copy import last_json, run_py, tiny_copy  # noqa: E402
+from perfcells.tests._copy import (  # noqa: E402
+    add_refractive_cell, last_json, run_py, tiny_copy)
 
 BENCH = catalog.benchmark()
 
@@ -64,3 +66,64 @@ def test_dropped_in_cell_config_and_metric_are_found(tmp_path):
     assert line["metrics"]["calls_n"]["value"] == line["attempted"] >= 1
     assert {"rays_per_s", "setup_s"} <= set(line["metrics"])
     assert line["correct"] is True
+
+
+def test_dropped_in_refractive_cell_runs_and_its_control_fails(tmp_path):
+    """A splitting configuration (two lenses, a measuring sphere, capacity
+    4x the batch, 5 bounces, a stated power cutoff), its scene generators
+    and a trace_batched cell, dropped into a copy as files only, read
+    correct with no source ray dead at the first launch; the same cell with
+    the program's lenses at index 1.0 (the reference keeps theirs) reads
+    incorrect."""
+    from lightpycl_tpu_torch.geometry.primitives import optical_elements
+
+    root = tiny_copy(tmp_path)
+    cell = add_refractive_cell(root)
+    run = ("import json\nfrom perfcells.harness import driver\n"
+           f"print(json.dumps(driver.run_cell({cell!r}, 2**31 + 9, 0.5, "
+           "False, device='cpu')))\n")
+    mesh = last_json(run_py(root, (
+        "import json\nfrom perfcells.harness import catalog\n"
+        "from perfcells.harness.scene import element_arrays\n"
+        "a = element_arrays(catalog.load_json('configs', 'tiny_c3'))\n"
+        "print(json.dumps([[x['vertices'].tolist(), x['triangles'].tolist(),"
+        " x['ior']] for x in a]))\n")))
+    oe = optical_elements(16, 6)
+    for (V, T, ior), ref in zip(mesh, (
+            oe.biconvex_lens(1.0, 0.8, 0.2, ior=1.5),
+            oe.biconvex_lens(1.5, 0.8, 0.15, ior=1.7).translate((0, 0, 0.5)),
+            oe.sphere(radius=6.0, ior=1.0))):
+        assert np.array_equal(V, ref.vertices)
+        assert np.array_equal(T, ref.triangles) and ior == ref.ior
+    line = last_json(run_py(root, run))
+    assert line["correct"] is True, line["checks"]
+    assert line["checks"]["first_launch_dead_share"]["value"] == 0
+    flat = last_json(run_py(root, (
+        "import perfcells.harness.scene as S\n"
+        "orig = S.program_elements\n"
+        "S.program_elements = lambda arrays: orig([dict(a, ior=1.0) "
+        "for a in arrays])\n") + run))
+    assert flat["correct"] is False, flat["checks"]
+    assert flat["checks"]["ledger_gap"]["value"] > 1e-2
+
+
+def test_dropped_in_refractive_cell_past_its_capacity_reads_correct(
+        tmp_path):
+    """tiny.c3 with no cutoff, as config 3 states: its children overflow
+    the capacity and top-k drops about 0.4% of the power. The reference
+    fits them into the same slots and the cell reads correct; with the
+    reference keeping every child instead, the overflow reads as a ledger
+    gap."""
+    root = tiny_copy(tmp_path)
+    cell = add_refractive_cell(root, power_cutoff=0.0)
+    run = ("import json\nfrom perfcells.harness import driver\n"
+           f"print(json.dumps(driver.run_cell({cell!r}, 2**31 + 19, 0.5, "
+           "False, device='cpu')))\n")
+    line = last_json(run_py(root, run))
+    assert line["correct"] is True, line["checks"]
+    free = last_json(run_py(root, (
+        "import perfcells.reference.trace as R\n"
+        "orig = R.trace\n"
+        "R.trace = lambda *a, **kw: orig(*a[:6])\n") + run))
+    assert free["correct"] is False, free["checks"]
+    assert free["checks"]["ledger_gap"]["value"] > 1e-4

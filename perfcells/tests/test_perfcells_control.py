@@ -2,7 +2,8 @@
 (the reference computed in bfloat16, put in the program's place), and
 whole runs with the timed path broken underneath (the harness's look for
 a card skipped): a step that returns its state unchanged, half of the
-batch left out with the mean taken over the rest, answers altered where
+batch left out with the mean taken over the rest (the first half of the
+live rays, wherever the spare capacity lies), answers altered where
 the nearest hit produces them, and the exchange between ranks left out.
 On a card, one short run of a cell reads correct."""
 
@@ -14,7 +15,8 @@ import pytest
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
-from perfcells.tests._copy import HOME, last_json, run_py, tiny_copy  # noqa: E402
+from perfcells.tests._copy import (  # noqa: E402
+    HOME, add_refractive_cell, last_json, run_py, tiny_copy)
 
 FAULTS = {
     "unchanged_step": (
@@ -25,8 +27,8 @@ FAULTS = {
         "import torch\nimport lightpycl_tpu_torch.tracer.step as S\n"
         "orig = S.trace_loop\n"
         "def half(scene, rays, det, led, cfg, iterations, rng_words=None):\n"
-        "    keep = torch.arange(rays.capacity, device=rays.o.device) "
-        "< rays.capacity // 2\n"
+        "    keep = torch.cumsum(rays.alive.long(), 0) "
+        "<= rays.alive.sum() // 2\n"
         "    rays = rays._replace(alive=rays.alive & keep,\n"
         "                         power=torch.where(keep, 2 * rays.power, 0.0))\n"
         "    return orig(scene, rays, det, led, cfg, iterations, rng_words)\n"
@@ -64,7 +66,9 @@ RUN_RANKS = ("import json\nfrom perfcells.harness import driver\n"
 
 @pytest.fixture(scope="module")
 def root(tmp_path_factory):
-    return tiny_copy(tmp_path_factory.mktemp("perfcells"))
+    root = tiny_copy(tmp_path_factory.mktemp("perfcells"))
+    add_refractive_cell(root)
+    return root
 
 
 def _multi(root, fault, seed):
@@ -76,7 +80,7 @@ def _multi(root, fault, seed):
                                                            seed=seed)))
 
 
-@pytest.mark.parametrize("cell", ["tiny.c1", "tiny.c4"])
+@pytest.mark.parametrize("cell", ["tiny.c1", "tiny.c4", "tiny.c3"])
 def test_control_fails_where_the_program_passes(root, cell):
     out = run_py(root, (
         "from perfcells.readings import readings\n"
@@ -92,7 +96,9 @@ def test_control_fails_where_the_program_passes(root, cell):
 @pytest.mark.parametrize("cell,fault", [
     ("tiny.c1", "unchanged_step"), ("tiny.c1", "half_batch"),
     ("tiny.c1", "altered_answer"), ("tiny.c4", "unchanged_step"),
-    ("tiny.c4", "half_batch"), ("tiny.c4", "altered_answer")])
+    ("tiny.c4", "half_batch"), ("tiny.c4", "altered_answer"),
+    ("tiny.c3", "unchanged_step"), ("tiny.c3", "half_batch"),
+    ("tiny.c3", "altered_answer")])
 def test_broken_timed_path_reads_incorrect(root, cell, fault):
     sound = last_json(run_py(root, RUN_ONE.format(cell=cell, seed=2**31 + 5)))
     assert sound["correct"] is True, sound["checks"]

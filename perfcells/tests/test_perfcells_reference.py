@@ -7,6 +7,7 @@ import sys
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
@@ -117,3 +118,177 @@ def test_whole_trace_agrees_with_the_programs_plain_path():
     g = verdict.gaps(seen, want)
     assert all(g[k] <= limits[k] for k in g), g
     assert r["bounces"] == res.iterations_run
+
+
+# -- dielectrics: Snell refraction and the Fresnel split ---------------------
+
+def _quad(corners, material, name, ior=1.0):
+    """A flat element of two triangles over four corners in order; its
+    outward normal is (c1 - c0) x (c2 - c0)."""
+    return {"vertices": np.asarray(corners, np.float64),
+            "triangles": np.array([[0, 1, 2], [0, 2, 3]], np.int32),
+            "material": material, "reflectivity": 1.0, "ior": ior,
+            "name": name}
+
+
+def _opts(iterations, **kw):
+    o = {"eps": 1e-4, "eps_bary": 1e-6, "max_ray_len": 1e3,
+         "iterations": iterations, "dissipation_target": 2.0,
+         "hist_azimuth_bins": 4, "hist_polar_bins": 2,
+         "hist_center": (0.0, 0.0, 0.0), "ior_env": 1.0,
+         "power_cutoff": 0.0}
+    o.update(kw)
+    return o
+
+
+def _beam(n, z0, seed, x=(-0.4, 0.4), y=(-0.4, 0.4)):
+    """n rays along +z from the plane z0, uniform over the box x by y,
+    powers summing to 1."""
+    g = torch.Generator().manual_seed(seed)
+    u = torch.rand((n, 2), generator=g, dtype=torch.float64)
+    lo, hi = torch.tensor([x[0], y[0]]), torch.tensor([x[1], y[1]])
+    xy = lo + u * (hi - lo)
+    o = torch.cat([xy, torch.full((n, 1), z0, dtype=torch.float64)], 1)
+    d = torch.zeros((n, 3), dtype=torch.float64)
+    d[:, 2] = 1.0
+    return o, d, torch.full((n,), 1.0 / n, dtype=torch.float64)
+
+
+def test_slab_at_normal_incidence_splits_by_fresnel():
+    """A glass slab (n = 1.5, faces at z = 0 and 0.1) between two
+    detectors: after 3 bounces the front detector holds the first
+    surface's reflectance R = ((n - 1) / (n + 1))^2 and the back one the
+    power straight through, (1 - R)^2."""
+    n = 1.5
+    slab = {"vertices": np.array(
+        [[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0],
+         [-1, -1, .1], [1, -1, .1], [1, 1, .1], [-1, 1, .1]], np.float64),
+        "triangles": np.array([[0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7]],
+                              np.int32),
+        "material": "refractive", "reflectivity": 1.0, "ior": n,
+        "name": "slab"}
+    front = _quad([[-2, -2, -1], [2, -2, -1], [2, 2, -1], [-2, 2, -1]],
+                  "measure", "front")
+    back = _quad([[-2, -2, 1], [2, -2, 1], [2, 2, 1], [-2, 2, 1]],
+                 "measure", "back")
+    scene = ref_trace.scene_arrays([slab, front, back], "cpu")
+    r = ref_trace.trace(*_beam(512, -0.5, 1), scene, _opts(3))
+    R = ((n - 1) / (n + 1)) ** 2
+    assert abs(r["per_detector"][0] - R) < 1e-12
+    assert abs(r["per_detector"][1] - (1 - R) ** 2) < 1e-12
+
+
+def test_total_internal_reflection_has_no_transmitted_child():
+    """Rays enter a glass wedge (n = 1.5) head on at z = 0, then meet its
+    face x + z = 0.5 from inside at 45 degrees, past the critical angle
+    (41.8): all their power reflects and no transmitted child is made
+    (a cutoff below 0 keeps zero-power children, so one would show)."""
+    n = 1.5
+    entry = _quad([[-1, -1, 0], [-1, 1, 0], [.5, 1, 0], [.5, -1, 0]],
+                  "refractive", "entry", ior=n)
+    slope = _quad([[.5, -1, 0], [.5, 1, 0], [-1, 1, 1.5], [-1, -1, 1.5]],
+                  "refractive", "slope", ior=n)
+    scene = ref_trace.scene_arrays([entry, slope], "cpu")
+    normals = torch.linalg.cross(scene["e1"], scene["e2"])
+    assert (normals[:2, 2] < 0).all() and (normals[2:, 0] > 0).all()
+    o, d, p = _beam(256, -0.5, 2, x=(-0.5, -0.25), y=(-0.25, 0.25))
+    r = ref_trace.trace(o, d, p, scene, _opts(2, power_cutoff=-1.0))
+    R0 = ((n - 1) / (n + 1)) ** 2
+    assert r["live_rays"] == 256  # one TIR child a ray
+    assert abs(r["live"] - (1 - R0)) < 1e-12
+    assert abs(r["escaped"] - R0) < 1e-12
+    # the split itself, at the slope, for a ray inside the glass
+    nrm = torch.nn.functional.normalize(torch.tensor([[1.0, 0, 1.0]],
+                                                     dtype=torch.float64))
+    R, _, _, tir = ref_trace.dielectric(
+        d[:1], -nrm, torch.tensor([False]), torch.tensor([n],
+                                                         dtype=torch.float64),
+        torch.tensor([n], dtype=torch.float64), 1.0)
+    assert bool(tir[0]) and float(R[0]) == 1.0
+
+
+def _lens_stack(n_segments, n_radial):
+    """Config 3's elements (benchmarks/baseline_configs.py, configs[2]):
+    two biconvex lenses and a measuring sphere, from the port's meshers,
+    as the reference's element dicts and as the port's GeoObjects."""
+    from lightpycl_tpu_torch.geometry.primitives import optical_elements
+
+    oe = optical_elements(n_segments, n_radial)
+    els = [oe.biconvex_lens(1.0, 0.8, 0.2, ior=1.5, name="l1"),
+           oe.biconvex_lens(1.5, 0.8, 0.15, ior=1.7,
+                            name="l2").translate((0, 0, 0.5)),
+           oe.sphere(radius=6.0, material="measure", name="enclosure")]
+    arr = [{"vertices": e.vertices, "triangles": e.triangles,
+            "material": m, "reflectivity": 1.0, "ior": float(e.ior),
+            "name": e.name}
+           for e, m in zip(els, ("refractive", "refractive", "measure"))]
+    return arr, els
+
+
+def _stack_beam(n, seed):
+    u1, u2 = sampling.collimated_uniforms("cpu", seed, 0, n)
+    return sampling.collimated_rays((0.0, 0.0, -0.5), (0.0, 0.0, 1.0), 0.5,
+                                    1.0, u1, u2)
+
+
+def test_split_trace_conserves_power():
+    arr, _ = _lens_stack(12, 4)
+    o, d, p = _stack_beam(1024, 2**31 + 41)
+    r = ref_trace.trace(o, d, p, ref_trace.scene_arrays(arr, "cpu"),
+                        _opts(5, power_cutoff=1e-7))
+    assert r["culled"] > 0 and r["live"] > 0 and r["measured"] > 0.5
+    total = sum(r[k] for k in ("measured", "absorbed", "escaped", "culled",
+                               "live"))
+    assert abs(total - r["emitted"]) <= 1e-12 * r["emitted"]
+
+
+def test_split_trace_agrees_with_the_ports_float64_oracle():
+    """Config 3's stack at n_segments 16, n_radial 6, 2,048 collimated
+    rays, 5 bounces, no cutoff and no capacity (the oracle keeps every
+    child too): every ledger term and detector within 1e-9 of emitted."""
+    from lightpycl_tpu_torch.tracer.oracle import trace_oracle
+
+    arr, els = _lens_stack(16, 6)
+    o, d, p = _stack_beam(2048, 2**31 + 43)
+    opts = _opts(5)
+    r = ref_trace.trace(o, d, p, ref_trace.scene_arrays(arr, "cpu"), opts)
+    w = trace_oracle(els, o.numpy(), d.numpy(), p.numpy(),
+                     trace_iterations=5, max_ray_len=opts["max_ray_len"],
+                     ior_env=1.0, eps=opts["eps"], eps_bary=opts["eps_bary"],
+                     power_cutoff=0.0)
+    e = r["emitted"]
+    for k in ("measured", "absorbed", "escaped", "culled", "live"):
+        assert abs(r[k] - w[k]) <= 1e-9 * e, (k, r[k], w[k])
+    det = np.bincount(w["measured_det"], weights=w["measured_power"],
+                      minlength=1)
+    assert np.abs(r["per_detector"] - det).max() <= 1e-9 * e
+    assert r["live"] > 1e-3  # light is still split inside the glass
+
+
+def test_capacity_keeps_the_strongest_children_and_culls_the_rest():
+    """With a capacity under the children a bounce makes, the reference
+    keeps that many, the strongest, books the others' power as culled and
+    still accounts for every bit of power; without one it keeps them all."""
+    arr, _ = _lens_stack(12, 4)
+    o, d, p = _stack_beam(512, 2**31 + 47)
+    scene = ref_trace.scene_arrays(arr, "cpu")
+    free = ref_trace.trace(o, d, p, scene, _opts(3))
+    assert free["live_rays"] > 1024 and free["culled"] == 0
+    r = ref_trace.trace(o, d, p, scene, _opts(3), capacity=1024)
+    assert r["live_rays"] == 1024 and r["culled"] > 0
+    total = sum(r[k] for k in ("measured", "absorbed", "escaped", "culled",
+                               "live"))
+    assert abs(total - r["emitted"]) <= 1e-12 * r["emitted"]
+    # one bounce into the first lens: each ray's transmitted child carries
+    # about 96% of its power, its reflected child the rest; a capacity of
+    # one child a ray keeps the transmitted ones
+    one = ref_trace.trace(o, d, p, scene, _opts(1), capacity=512)
+    assert one["live_rays"] == 512 and one["live"] > 0.9
+    assert abs(one["live"] + one["culled"] - 1.0) <= 1e-12
+
+
+def test_reference_refuses_a_material_it_does_not_follow():
+    el = _quad([[0, 0, 0], [1, 0, 0], [1, 1, 0], [0, 1, 0]], "diffuse",
+               "screen")
+    with pytest.raises(ValueError, match="diffuse"):
+        ref_trace.scene_arrays([el], "cpu")
