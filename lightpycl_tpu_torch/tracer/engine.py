@@ -174,6 +174,11 @@ class TraceResult:
     opl_edges: Optional[np.ndarray] = None
     # trace_batched runs only: (B, D) measured power per batch per detector
     per_batch_detector: Optional[np.ndarray] = None
+    # trace_batched runs only: (B, 5) float64 ledger per batch, in Ledger
+    # field order (emitted, measured, absorbed, escaped, culled); each
+    # batch books the power still live at its end as culled. None when
+    # resumed from a checkpoint that holds no such rows
+    per_batch_ledger: Optional[np.ndarray] = None
     device: str = ""              # torch device the trace ran on
 
     @property
@@ -595,8 +600,11 @@ class Tracer:
         from (seed, b), so with `checkpoint_path` (state saved after every
         batch) an interrupted run resumes at the next batch and ends with
         the same bits as an uninterrupted one. `max_batches` stops after
-        that many batches of this call. `capacity` (default batch_size)
-        gives split-heavy scenes headroom, as in trace(capacity=...).
+        that many batches of this call. The result keeps each batch's own
+        detector totals and ledger (`per_batch_detector`,
+        `per_batch_ledger`), from the readback the sums are made of.
+        `capacity` (default batch_size) gives split-heavy scenes headroom,
+        as in trace(capacity=...).
 
         mode="multichip" shards every batch over the "rays" axis of the
         mesh (default every rank of the process group) exactly like
@@ -657,6 +665,9 @@ class Tracer:
         acc = {f: np.zeros(tuple(getattr(zeros, f).shape))
                for f in DetectorState._fields}
         per_batch: list = []  # (D,) measured power per completed batch
+        # (5,) ledger per completed batch; None once unknown (a resumed
+        # checkpoint without them)
+        per_batch_led: Optional[list] = []
         led64 = np.zeros(5)  # emitted, measured, absorbed, escaped, culled
         start_batch = 0
         if checkpoint_path is not None:
@@ -670,6 +681,10 @@ class Tracer:
                 pb = extra.get("per_batch")
                 if pb is not None and np.asarray(pb).size:
                     per_batch = [row for row in np.asarray(pb)]
+                pbl = extra.get("per_batch_ledger")
+                per_batch_led = ([row for row in np.asarray(pbl)]
+                                 if pbl is not None
+                                 and len(pbl) == len(per_batch) else None)
                 led64 = np.asarray(extra["led64"])
                 start_batch = int(extra.get("next_batch", 0))
                 log.info("resuming batched trace at batch %d", start_batch)
@@ -700,14 +715,18 @@ class Tracer:
                 # map is (1, 1): parallel/mesh2d.py)
                 acc[f] += h.reshape(getattr(det_b, f).shape)
             per_batch.append(host[1])  # this batch's per_detector
+            if per_batch_led is not None:
+                per_batch_led.append(host[-1])
             led64[:] += host[-1]
             if checkpoint_path is not None:
                 if writes_checkpoint:
+                    rows = ({} if per_batch_led is None else
+                            {"per_batch_ledger": np.asarray(per_batch_led)})
                     checkpoint.save_state(
                         checkpoint_path, **{key: acc[f]
                                             for f, key in _CKPT_KEYS.items()},
                         per_batch=np.asarray(per_batch), led64=led64,
-                        next_batch=b + 1)
+                        next_batch=b + 1, **rows)
                 if mode != "device":
                     pdist.barrier(mesh)
             log.info("batch %d/%d done", b + 1, n_batches)
@@ -767,6 +786,9 @@ class Tracer:
             time_hist=acc["time_hist"] if cfg.time_bins > 0 else None,
             opl_edges=_opl_edges(cfg),
             per_batch_detector=np.asarray(per_batch) if per_batch else None,
+            per_batch_ledger=(np.asarray(per_batch_led)
+                              if per_batch and per_batch_led is not None
+                              else None),
             device=str(dev))
         self.last_result = result
         return result

@@ -1416,14 +1416,19 @@ def compact(sh: ShadeOut, capacity: int, cfg: TraceConfig):
     if cfg.compaction != "topk":
         raise ValueError(f"unknown compaction {cfg.compaction!r}")
 
-    key = torch.where(live, sh.child_power, -1.0)
-    # stable descending sort == jax.lax.top_k's order (ties: lower slot)
-    idx = torch.sort(key, descending=True, stable=True).indices[:capacity]
-    sel_live = live[idx]
-    sel_power = torch.where(sel_live, sh.child_power[idx], 0.0)
-    culled = total_live - torch.sum(sel_power) + below
-    return (_child_batch(sh, sel_power, sel_live, lambda a, fill: a[idx]),
-            culled)
+    with span("compact.topk"):
+        key = torch.where(live, sh.child_power, -1.0)
+        # stable descending sort == jax.lax.top_k's order (ties: lower slot)
+        idx = torch.sort(key, descending=True, stable=True).indices[:capacity]
+        sel_live = live[idx]
+        sel_power = torch.where(sel_live, sh.child_power[idx], 0.0)
+        culled = total_live - torch.sum(sel_power) + below
+        new_rays = _child_batch(sh, sel_power, sel_live,
+                                lambda a, fill: a[idx])
+    if enabled():
+        count("compact.children", live.sum())
+        count("compact.kept", sel_live.sum())
+    return new_rays, culled
 
 
 # --------------------------------------------------------------------------

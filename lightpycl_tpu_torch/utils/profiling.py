@@ -30,6 +30,9 @@ what it drops.
         scene.morton_sort     intersect.tiles_kept, intersect.tiles (each
       engine.resolve_cull       cull mask: the (ray block, triangle tile)
       engine.resolve_ray_len    pairs kept, and all of them)
+                              compact.children, compact.kept (each top-k
+                                fit: live children above the cutoff that
+                                enter it, and those it keeps)
       engine.batch
         engine.assemble
         engine.readback
@@ -38,6 +41,8 @@ what it drops.
           step.accumulate, step.compact
             step.sync (in step.accumulate: the detector's constant
               uploads, bincount_sorted's index read)
+            compact.topk (in step.compact, splitting scenes' top-k fit:
+              the sort and the gather)
         step.sync (the per-bounce early-exit read)
       parallel.all_reduce
 

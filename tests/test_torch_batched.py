@@ -14,6 +14,7 @@ import torch
 
 import lightpycl_tpu as L
 import lightpycl_tpu_torch as P
+from lightpycl_tpu_torch.tracer.rays import Ledger
 
 torch.set_num_threads(1)
 CPU = torch.device("cpu")
@@ -178,6 +179,8 @@ def test_resume_from_a_reference_checkpoint(tmp_path):
     ref = runs(False)[0]
     for k, v in ref.ledger.items():
         assert resumed.ledger[k] == pytest.approx(v, rel=1e-5, abs=1e-7), k
+    # the reference's checkpoint holds no ledger rows for its batch
+    assert resumed.per_batch_ledger is None
     for f in FIELDS:
         assert np.allclose(getattr(resumed, f), getattr(ref, f), rtol=1e-5,
                            atol=1e-7), f
@@ -232,3 +235,45 @@ def test_multi_device_modes_raise(kw):
     assert port.power_conservation_error() < 1e-5
     if "mesh" in kw:
         assert_bit_identical(port, port_run())
+
+
+def split_run(**kw):
+    """A job of four 1,024-ray batches through the bowl, the refracting
+    slab (splitting) and the dome, at 2x capacity."""
+    src = P.CollimatedSource(center=(0, 0, 5), direction=(0, 0, -1),
+                             diameter=3.5, power=2.0)
+    args = dict(total_rays=4 * 1024, batch_size=1024, capacity=2 * 1024,
+                seed=9, trace_iterations=4)
+    args.update(kw)
+    return P.Tracer(device=CPU).trace_batched(src, elements=bench(P), **args)
+
+
+@pytest.mark.parametrize("run,power", [(port_run, 1.0), (split_run, 2.0)],
+                         ids=["mirror_roulette", "splitting"])
+def test_per_batch_ledger_rows_sum_to_the_ledger(run, power):
+    res = run()
+    rows = res.per_batch_ledger
+    assert rows.shape == (4, 5) and rows.dtype == np.float64
+    total = np.array([res.ledger[k] for k in Ledger._fields])
+    np.testing.assert_allclose(rows.sum(axis=0), total, rtol=1e-12,
+                               atol=1e-12 * total[0])
+    # each batch emits its share of the source's power (float32 sums)
+    np.testing.assert_allclose(rows[:, 0], power / 4, rtol=1e-6)
+    # the batches differ, and each closes its own ledger
+    assert not np.array_equal(rows[0], rows[1])
+    np.testing.assert_allclose(rows[:, 1:].sum(axis=1), rows[:, 0],
+                               rtol=1e-5)
+    np.testing.assert_allclose(rows[:, 1], res.per_batch_detector.sum(axis=1),
+                               rtol=1e-5)
+
+
+def test_per_batch_ledger_resumes_bit_for_bit(tmp_path):
+    full = split_run()
+    ck = str(tmp_path / "run")
+    first = split_run(checkpoint_path=ck, max_batches=3)
+    assert np.array_equal(first.per_batch_ledger, full.per_batch_ledger[:3])
+    resumed = split_run(checkpoint_path=ck)
+    assert np.array_equal(resumed.per_batch_ledger, full.per_batch_ledger)
+    assert np.array_equal(resumed.per_batch_detector,
+                          full.per_batch_detector)
+    assert resumed.ledger == full.ledger

@@ -248,3 +248,72 @@ def test_counters_keep_one_running_sum_a_call(record):
                    ("step.slots", b): (1000, 3000.0),
                    ("step.slots", None): (1, 5.0)}
     assert all(c.t0_ns <= c.t1_ns for c in rec.counts)
+
+
+def lens_stack():
+    oe = P.optical_elements(16, 6)
+    return [oe.biconvex_lens(1.0, 0.8, 0.2, ior=1.5),
+            oe.biconvex_lens(1.5, 0.8, 0.15, ior=1.7).translate((0, 0, 0.5)),
+            oe.sphere(radius=6.0, material="measure", name="enclosure")]
+
+
+def split_job(**kw):
+    """Two 256-ray batches through a two-lens stack at 1x capacity, so
+    that the top-k fit drops children from the second bounce on."""
+    src = P.CollimatedSource(center=(0.0, 0.0, -0.5),
+                             direction=(0.0, 0.0, 1.0), diameter=0.5,
+                             power=1.0)
+    return P.Tracer(device="cpu").trace_batched(
+        src, total_rays=512, batch_size=256, elements=lens_stack(), seed=7,
+        trace_iterations=5, **kw)
+
+
+def test_fit_counters_equal_the_live_children_of_shade(record, monkeypatch):
+    import lightpycl_tpu_torch.tracer.step as S
+
+    fits = []
+    orig = S.compact
+
+    def watched(sh, capacity, cfg):
+        live = int((sh.child_alive & (sh.child_power > cfg.power_cutoff))
+                   .sum())
+        fits.append((live, min(live, capacity)))
+        return orig(sh, capacity, cfg)
+
+    monkeypatch.setattr(S, "compact", watched)
+    with profile(activities=[ProfilerActivity.CPU]):
+        res = split_job()
+    rec = PF.recorded()
+    total = collections.Counter()
+    for c in rec.counts:
+        total[c.name] += c.value
+    assert total["compact.children"] == sum(n for n, _ in fits)
+    assert total["compact.kept"] == sum(k for _, k in fits)
+    # the fit dropped children, and ran once a bounce
+    assert total["compact.kept"] < total["compact.children"]
+    topk = [s for s in rec.spans if s.name == "compact.topk"]
+    assert len(topk) == len(fits) == res.rays_traced // 256
+    assert all(rec.spans[s.parent].name == "step.compact" for s in topk)
+
+
+@pytest.mark.parametrize("job", ["mirror_only", "stream"])
+def test_no_fit_records_no_fit_counters(record, job):
+    with profile(activities=[ProfilerActivity.CPU]):
+        if job == "mirror_only":
+            batched()
+        else:
+            split_job(compaction="stream")
+    rec = PF.recorded()
+    assert rec.spans and rec.counts
+    assert not {c.name for c in rec.counts} & {"compact.children",
+                                                "compact.kept"}
+    assert "compact.topk" not in {s.name for s in rec.spans}
+
+
+def test_split_job_outputs_equal_with_recording_on_and_off(record):
+    off = split_job()
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = split_job()
+    assert any(c.name == "compact.kept" for c in PF.recorded().counts)
+    np.testing.assert_equal(outputs(on), outputs(off))
+    np.testing.assert_array_equal(on.per_batch_ledger, off.per_batch_ledger)
