@@ -2532,8 +2532,8 @@ def main():
         t_p, i_p = PI.nearest_hit_torch(eo, ed, *eargs)
         bo, bd = edge_rays(sc, EDGE_RAYS, seed=6, direction=(0, 0, -1))
         order = S.morton_permutation(sc, types.SimpleNamespace(
-            o=bo, alive=torch.ones(EDGE_RAYS, dtype=torch.bool,
-                                   device="cuda")))[:EDGE_CULL_RAYS]
+            o=bo, d=bd, alive=torch.ones(EDGE_RAYS, dtype=torch.bool,
+                                         device="cuda")))[:EDGE_CULL_RAYS]
         co, cd = bo[order].contiguous(), bd[order].contiguous()
         emask = PI.block_tile_mask(sc, co, cd, 1e3)
         tc_k, ic_k = PI.nearest_hit_cuda(co, cd, *eargs, mask=emask)

@@ -244,7 +244,11 @@ def cull_mask(o, d, aabb_lo, aabb_hi, R, t_max, alive=None):
     """(n_rb, n_tt) int32 conservative reachability of triangle-tile AABBs
     from ray blocks of R rays (o, d: (Cp, >= 3), Cp a multiple of R). Never
     false-culls: the axis-interval test, the direction-cone test and the
-    any-alive test each keep every truly reachable tile."""
+    any-alive test each keep every truly reachable tile. While a profiler
+    records, counts the ray blocks that hold a live ray
+    (`intersect.blocks_live`) and those among them whose rays, dead and
+    padding ones too, point both ways along some axis, where the axis test
+    bounds that axis on neither side (`intersect.blocks_mixed`)."""
     n_rb = o.shape[0] // R
     dev = o.device
     o_b = o[:, :3].reshape(n_rb, R, 3)
@@ -261,6 +265,10 @@ def cull_mask(o, d, aabb_lo, aabb_hi, R, t_max, alive=None):
 
     o_lo, o_hi = o_b.amin(dim=1), o_b.amax(dim=1)
     d_lo, d_hi = d_b.amin(dim=1), d_b.amax(dim=1)
+    if enabled():
+        count("intersect.blocks_live", any_alive.sum())
+        count("intersect.blocks_mixed",
+              (((d_lo < 0.0) & (d_hi > 0.0)).any(dim=1) & any_alive).sum())
     tiny = 1e-12
     pos = d_lo > tiny
     neg = d_hi < -tiny
@@ -327,7 +335,7 @@ def block_tile_mask(scene, o, d, t_max, alive=None):
     kernel's block shape (ray padding as in the reference: dead rays at
     the origin pointing along (1, 1, 1)). While a profiler records, counts
     the (ray block, triangle tile) pairs it keeps (`intersect.tiles_kept`)
-    of all of them (`intersect.tiles`)."""
+    of all of them (`intersect.tiles`); `cull_mask` counts the ray blocks."""
     C = o.shape[0]
     pad = -C % RAY_BLOCK
     if pad:

@@ -81,9 +81,9 @@ def place(scene: Scene, rays: RayBatch, mesh: DeviceMesh,
 
 def _scene_box(scene: Scene, group):
     """The global box of the valid triangles' v0 over every shard of the
-    "tris" axis: one MIN all-reduce of (lo, -hi). The Morton resort must
-    permute identically on every "tris" rank, so it cannot use the box of
-    the shard it holds (step.morton_permutation)."""
+    "tris" axis: one MIN all-reduce of (lo, -hi). The octant-then-Morton
+    resort must permute identically on every "tris" rank, so it cannot use
+    the box of the shard it holds (step.morton_permutation)."""
     valid = torch.any(scene.ww != 0.0, dim=1)[:, None]
     lo = torch.where(valid, scene.v0, 3.4e38).amin(dim=0)
     neg_hi = -torch.where(valid, scene.v0, -3.4e38).amax(dim=0)
@@ -140,12 +140,14 @@ def trace_mesh2d(scene: Scene, rays: RayBatch, cfg: TraceConfig,
         gen = (step_mod.make_generator(dev, *words, my_ray, i)
                if cfg.needs_rng else None)
         if cfg.cull:
-            # per-bounce Morton resort on the global box, 20 bits a axis
-            # (step.morton_order: a dense beam under a wide box would share
-            # one 10-bit code per thousands of rays): each ray block is a
-            # tight patch, so each shard's own tile mask bites
-            rays = rays.permuted(step_mod.morton_order(rays.o, rays.alive,
-                                                       box_lo, box_hi))
+            # per-bounce resort on the global box: octant, then Morton
+            # order of the origins at 20 bits a axis (step.morton_order: a
+            # dense beam under a wide box would share one 10-bit code per
+            # thousands of rays, and split children leave one point both
+            # ways): each ray block is a tight patch pointing one way, so
+            # each shard's own tile mask bites
+            rays = rays.permuted(step_mod.morton_order(
+                rays.o, rays.d, rays.alive, box_lo, box_hi))
         t_loc, i_loc = intersect(scene, rays.o, rays.d, cfg,
                                  alive=rays.alive)
         t, tri = nearest_over_tris(t_loc, i_loc, offset, g_tri)

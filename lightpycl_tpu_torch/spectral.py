@@ -146,12 +146,12 @@ def _detector_zeros(scene: Scene, cfg: TraceConfig, n_detectors: int,
 
 def intersect_slots(scene: Scene, sr: SpectralRays, cfg: TraceConfig):
     """(t, tri) of the bounce's rays in slot order. With cfg.cull the
-    kernel gets them in the Morton order of their origins
+    kernel gets them by octant, then in the Morton order of their origins
     (`step.morton_permutation`, the order the scalar step sorts its batch
-    into), so that each ray block is compact and the cull mask keeps few
-    (block, tile) pairs; (t, tri) are scattered back to the slots. A ray's
-    hit does not depend on its neighbours in the launch, so this is the
-    slot-order launch's result bit for bit."""
+    into), so that each ray block is compact in origin and direction and
+    the cull mask keeps few (block, tile) pairs; (t, tri) are scattered
+    back to the slots. A ray's hit does not depend on its neighbours in
+    the launch, so this is the slot-order launch's result bit for bit."""
     if not cfg.cull:
         return intersect(scene, sr.o, sr.d, cfg, alive=sr.alive)
     perm = step_mod.morton_permutation(scene, sr)
@@ -171,8 +171,8 @@ def spectral_step(scene: Scene, sr: SpectralRays, det: DetectorState,
     measured power through the scalar binning
     (`accumulate_detector_arrays`); `per_det` (D, W) keeps the full
     per-detector spectra. Rays stay in slot order (the slot order decides
-    the top-k ties); only the culled launch runs in Morton order
-    (`intersect_slots`)."""
+    the top-k ties); only the culled launch runs in octant, then Morton
+    order (`intersect_slots`)."""
     C, W = sr.P.shape
     t, tri = intersect_slots(scene, sr, cfg)
     # exact quadric surfaces are deterministic and achromatic: they merge

@@ -76,7 +76,9 @@ def make_generator(device, *words: int) -> torch.Generator:
 # --------------------------------------------------------------------------
 
 _MORTON_MAX = (1 << 20) - 1  # 20 bits a axis: see morton_order
-_MORTON_DEAD = 1 << 62  # above every live code (< 2**60)
+_OCTANT_SHIFT = 60  # the direction octant's 3 bits above the 60-bit code
+_KEY_LIVE = torch.iinfo(torch.int64).min  # live keys: [min, -1]
+_KEY_DEAD = torch.iinfo(torch.int64).max  # above every live key
 
 
 def _spread3(x):
@@ -92,45 +94,61 @@ def _spread3(x):
     return x
 
 
-def morton_order(o, alive, lo, hi):
-    """Stable permutation sorting rays by the Morton code of their origins
-    (20 bits/axis over [lo, hi], a 60-bit code in int64); dead rays sort to
-    the end, live ties keep their slot order.
+def morton_order(o, d, alive, lo, hi):
+    """Stable permutation sorting rays by the octant of their directions,
+    then by the Morton code of their origins (20 bits/axis over [lo, hi],
+    a 60-bit code); dead rays sort to the end, live ties keep their slot
+    order. The octant's bit k is set when d[:, k] < 0 (so -0.0 and 0 share
+    an octant); one int64 key, (octant << 60 | code) shifted down by 2**63,
+    dead rays the largest int64.
 
-    The reference quantises to 10 bits a axis. Over a scene box much wider
-    than the beam (a 3.5-wide beam under a radius-100 dome: cells 0.2
-    across) thousands of rays share a 10-bit code, the stable sort leaves
-    them in sampling order, and every 256-ray block spans a whole cell, so
-    the cull mask keeps every tile such a block could reach. At 20 bits a
-    cell holds far fewer rays than a block, and a block is a tight patch:
-    on config 4's 4M-ray batches the mask keeps 2.1% and 5.3% of the
-    (block, tile) pairs at the two bounces, against 3.8% and 7.9% at 10
-    bits. The code's top 30 bits order cells as the 10-bit code does (up
-    to the rounding of the two quantisations), so this order refines the
-    reference's."""
+    The reference quantises to 10 bits a axis and ignores the directions.
+    Over a scene box much wider than the beam (a 3.5-wide beam under a
+    radius-100 dome: cells 0.2 across) thousands of rays share a 10-bit
+    code, the stable sort leaves them in sampling order, and every 256-ray
+    block spans a whole cell, so the cull mask keeps every tile such a
+    block could reach. At 20 bits a cell holds far fewer rays than a
+    block, and a block is a tight patch: on config 4's 4M-ray batches the
+    mask keeps 2.1% and 5.3% of the (block, tile) pairs at the two
+    bounces, against 3.8% and 7.9% at 10 bits. The code's top 30 bits
+    order cells as the 10-bit code does (up to the rounding of the two
+    quantisations), so within an octant this order refines the
+    reference's.
+
+    The octant comes first because a dielectric's reflected and
+    transmitted children leave one hit point: sorted by origin alone they
+    sit side by side, every block of a splitting bounce points both ways
+    along the axis, and the mask's axis and cone tests can reject no tile.
+    Where every live ray lies in one octant (a collimated bundle, config
+    4's first bounce) the order is the origins' Morton order alone."""
     span = torch.clamp_min(hi - lo, 1e-20)
     top = float(_MORTON_MAX)
     q = torch.clamp((o - lo) / span * top, 0.0, top).to(torch.int64)
     code = (_spread3(q[:, 0]) | (_spread3(q[:, 1]) << 1)
             | (_spread3(q[:, 2]) << 2))
-    code = torch.where(alive, code, _MORTON_DEAD)
-    return torch.argsort(code, stable=True)
+    neg = (d[:, :3] < 0.0).to(torch.int64)
+    octant = neg[:, 0] | (neg[:, 1] << 1) | (neg[:, 2] << 2)
+    key = ((octant << _OCTANT_SHIFT) | code) + _KEY_LIVE
+    key = torch.where(alive, key, _KEY_DEAD)
+    return torch.argsort(key, stable=True)
 
 
 def morton_permutation(scene: Scene, rays) -> torch.Tensor:
-    """The slot permutation `reorder_rays` applies: Morton order of the
-    origins over the box of the scene's valid triangles (padding rows
-    would stretch the box to include the origin). `rays`: anything with
-    `o` and `alive` (a RayBatch, spectral.SpectralRays)."""
+    """The slot permutation `reorder_rays` applies: octant, then Morton
+    order of the origins over the box of the scene's valid triangles
+    (padding rows would stretch the box to include the origin). `rays`:
+    anything with `o`, `d` and `alive` (a RayBatch,
+    spectral.SpectralRays)."""
     valid = torch.any(scene.ww != 0.0, dim=1)[:, None]
     lo = torch.where(valid, scene.v0, 3.4e38).amin(dim=0)
     hi = torch.where(valid, scene.v0, -3.4e38).amax(dim=0)
-    return morton_order(rays.o, rays.alive, lo, hi)
+    return morton_order(rays.o, rays.d, rays.alive, lo, hi)
 
 
 def reorder_rays(scene: Scene, rays: RayBatch) -> RayBatch:
-    """Morton-sort the batch (ray order is semantically free: every
-    downstream quantity is per-ray or a sum)."""
+    """Sort the batch by octant, then Morton order of the origins (ray
+    order is semantically free: every downstream quantity is per-ray or a
+    sum)."""
     return rays.permuted(morton_permutation(scene, rays))
 
 

@@ -30,6 +30,10 @@ what it drops.
         scene.morton_sort     intersect.tiles_kept, intersect.tiles (each
       engine.resolve_cull       cull mask: the (ray block, triangle tile)
       engine.resolve_ray_len    pairs kept, and all of them)
+                              intersect.blocks_live, intersect.blocks_mixed
+                                (each cull mask: ray blocks holding a live
+                                ray, those whose rays point both ways
+                                along some axis)
                               compact.children, compact.kept (each top-k
                                 fit: live children above the cutoff that
                                 enter it, and those it keeps)

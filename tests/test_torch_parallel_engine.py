@@ -170,9 +170,14 @@ def test_trace_batched_mesh2d_resume_is_bit_identical(runs, world):
     full, resumed = dict(res["full"]), dict(res["resumed"])
     assert resumed.pop("rays_traced") * 3 == full.pop("rays_traced")
     assert same(full, resumed)
-    # roulette acted: the batches differ
-    assert not np.array_equal(res["full"]["per_batch_detector"][0],
-                              res["full"]["per_batch_detector"][1])
+    # roulette acted: batches 0 and 1, of the same rays, differ in their
+    # ledgers (the power roulette culls); their detector totals may tie,
+    # since survivors carry whole weights (at 2 ranks they do), but not
+    # every batch's
+    led = res["full_ledger_rows"]
+    assert not np.array_equal(led[0], led[1])
+    rows = res["full"]["per_batch_detector"]
+    assert any(not np.array_equal(rows[0], r) for r in rows[1:])
     assert res["full"]["conservation"] < 1e-5
 
 

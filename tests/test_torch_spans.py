@@ -126,24 +126,33 @@ class Ops(TorchDispatchMode):
 def test_counters_are_the_only_torch_ops_tracing_adds(record):
     """The same job dispatches the same torch ops with the profiler off
     and on, but for each device-valued count's sum, its running sum (one
-    copy a call, then one in-place add an increment) and each span's
-    range; so the off path adds none, and the on path no host read."""
+    copy a call, then one in-place add an increment), the four ops a cull
+    mask spends on its mixed-block flags ((d_lo < 0) & (d_hi > 0), any
+    axis, and a live block) and each span's range; so the off path adds
+    none, and the on path no host read."""
     with Ops() as off:
         r_off = batched()
     with profile(activities=[ProfilerActivity.CPU]), Ops() as on:
         r_on = batched()
-    device_valued = ("step.live_rays", "intersect.tiles_kept")
+    device_valued = ("step.live_rays", "intersect.tiles_kept",
+                     "intersect.blocks_live", "intersect.blocks_mixed")
     assert PF._REC.counts and all(
         (key[2] is not None) == (key[0] in device_valued)
         for key in PF._REC.counts)
     sums = [acc for key, acc in PF._REC.counts.items() if key[2] is not None]
     n_incr = sum(acc[2] for acc in sums)
     n_spans = len(PF._REC.spans)
-    assert n_incr > len(sums) > 0
+    n_masks = sum(acc[2] for key, acc in PF._REC.counts.items()
+                  if key[0] == "intersect.blocks_mixed")
+    assert n_incr > len(sums) > 0 and n_masks > 0
     assert dict(on.n - off.n) == {
         "aten.sum.default": n_incr,
         "aten._to_copy.default": len(sums),
         "aten.add_.Tensor": n_incr - len(sums),
+        "aten.lt.Scalar": n_masks,
+        "aten.gt.Scalar": n_masks,
+        "aten.bitwise_and.Tensor": 2 * n_masks,
+        "aten.any.dim": n_masks,
         "profiler._record_function_enter_new.default": n_spans,
         "profiler._record_function_exit._RecordFunction": n_spans}
     assert not off.n - on.n
@@ -197,6 +206,55 @@ def test_counters_agree_with_what_the_kernel_is_given(profiled_run):
     assert total["step.live_rays"] == sum(seen["alive"])
     assert total["step.slots"] == BATCH * len(seen["alive"])
     assert 0 < total["intersect.tiles_kept"] < total["intersect.tiles"]
+
+
+def octant_batch():
+    """Three ray blocks: one live in one octant (with -0.0 and +0.0
+    components), one live with a ray pointing back along z, one dead
+    (whatever it points at)."""
+    R = PI.RAY_BLOCK
+    d = torch.tensor([0.0, -0.0, 1.0]).repeat(3 * R, 1)
+    d[R + 5, 2] = -1.0
+    d[2 * R:] = torch.tensor([-1.0, 1.0, -1.0])
+    d[2 * R + 7] = torch.tensor([1.0, -1.0, 1.0])
+    alive = torch.ones(3 * R, dtype=torch.bool)
+    alive[2 * R:] = False
+    return torch.zeros((3 * R, 3)), d, alive
+
+
+def block_counts(scene, calls):
+    """`intersect.blocks_live`, `intersect.blocks_mixed` over the masks of
+    `calls` ((o, d, alive) each), built under the profiler."""
+    PF.clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for o, d, alive in calls:
+            PI.block_tile_mask(scene, o, d, 1e3, alive=alive)
+    got = {c.name: c.value for c in PF.recorded().counts}
+    PF.clear()
+    return got["intersect.blocks_live"], got["intersect.blocks_mixed"]
+
+
+def test_block_counters_on_a_crafted_batch(record):
+    """`intersect.blocks_live` / `intersect.blocks_mixed` read 2 and 1 on
+    a single-octant, a mixed and a dead block, and nothing while no
+    profiler records."""
+    scene, _ = P.build_scene(elements(), device="cpu")
+    o, d, alive = octant_batch()
+    PI.block_tile_mask(scene, o, d, 1e3, alive=alive)
+    assert PF.recorded() == PF.Record([], [], 0)
+    assert block_counts(scene, [(o, d, alive)]) == (2, 1)
+    # one ray short of three blocks: the padded slot is dead, and the
+    # counts of two masks add up
+    assert block_counts(scene, [(o, d, alive),
+                                (o[:-1], d[:-1], alive[:-1])]) == (4, 2)
+    # with no alive given every ray is live: the third block is live too,
+    # and mixed (its ray 7 points the other way on every axis)
+    assert block_counts(scene, [(o, d, None)]) == (3, 2)
+    # the mask sees dead rays' directions too: a live block whose dead
+    # ray points back along z is mixed
+    a = alive.clone()
+    d[10, 2], a[10] = -1.0, False
+    assert block_counts(scene, [(o, d, a)]) == (2, 2)
 
 
 def test_every_span_is_a_profiler_range(profiled_run):

@@ -1,11 +1,12 @@
-"""The shared spectral step's culled launch in Morton order
+"""The shared spectral step's culled launch in octant, then Morton order
 (lightpycl_tpu_torch.spectral.intersect_slots) on the CPU, where the
 nearest hit is the plain version with the cull mask.
 
-* Launched in the Morton order of the rays' origins and scattered back,
-  (t, tri) equal the slot-order launch's bit for bit, at the first bounce
-  and at later ones (split, compacted rays), and the Morton order keeps
-  no more (block, tile) pairs of the mask than the slot order.
+* Launched by direction octant, then in the Morton order of the rays'
+  origins, and scattered back, (t, tri) equal the slot-order launch's bit
+  for bit, at the first bounce and at later ones (split, compacted rays),
+  and that order keeps no more (block, tile) pairs of the mask than the
+  slot order; a split bounce launches its live rays grouped by octant.
 * Whole shared traces with the cull on and off, on the same scene, give the
   same bits in every spectrum, map, ledger column and live ray: the order
   of the launch changes nothing downstream (merge_analytic, the split and
@@ -100,14 +101,20 @@ def test_the_launch_is_morton_ordered_only_under_cull(monkeypatch):
     seen = []
     monkeypatch.setattr(PI.intersect, "observer",
                         lambda sc, o, d, c, alive, mask: seen.append(
-                            (o.clone(), mask)))
+                            (o.clone(), d.clone(), alive.clone(), mask)))
     PS.intersect_slots(scene, sr, cfg)
     PS.intersect_slots(scene, sr, cfg.replace(cull=False))
     perm = S.morton_permutation(scene, sr)
-    (o_cull, mask_cull), (o_brute, mask_brute) = seen
+    (o_cull, d_cull, a_cull, mask_cull), (o_brute, _, _, mask_brute) = seen
     assert torch.equal(o_cull, sr.o[perm]) and mask_cull is not None
     assert torch.equal(o_brute, sr.o) and mask_brute is None
     assert not torch.equal(perm, torch.arange(len(perm)))
+    # the split bounce's live rays launch grouped by direction octant
+    # (bit k: d[:, k] < 0), split children in more than one
+    neg = (d_cull[a_cull] < 0).long()
+    octant = neg[:, 0] | (neg[:, 1] << 1) | (neg[:, 2] << 2)
+    assert bool((octant[1:] >= octant[:-1]).all())
+    assert len(torch.unique(octant)) > 1
 
 
 def test_whole_trace_culled_equals_brute_bit_for_bit():

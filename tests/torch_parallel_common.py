@@ -446,12 +446,14 @@ def engine_scenarios(rank, world, ckpt_dir):
     # roulette on: a run cut after two batches and resumed from its
     # checkpoint equals the uninterrupted run bit for bit
     roul = dict(roulette_threshold=5e-4, cull=None)
-    full = summary(batched_port("mesh2d", m2, **roul))
+    full_res = batched_port("mesh2d", m2, **roul)
+    full = summary(full_res)
     ck = os.path.join(ckpt_dir, "mesh2d_run")
     first = batched_port("mesh2d", m2, checkpoint_path=ck, max_batches=2,
                          **roul)
     resumed = summary(batched_port("mesh2d", m2, checkpoint_path=ck, **roul))
     out["resume"] = {"full": full, "first_batches": first.per_batch_detector,
+                     "full_ledger_rows": full_res.per_batch_ledger,
                      "resumed": resumed,
                      "checkpoint": os.path.exists(ck + ".npz")}
     out["batched_multichip_roulette"] = summary(batched_port("multichip",
