@@ -51,7 +51,6 @@ import subprocess
 import sys
 import tempfile
 import time
-import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -864,7 +863,7 @@ class CallTap:
     torch.profiler.record_function(`span`) range when a span is given, and
     the first and last calls' arguments are kept (tensors cloned) to make
     the call again alone. On spectral.film_stack_reflectance (the film
-    stack of the shared spectral step) and spectral.intersect_slots (its
+    stack of the shared spectral step) and step.intersect_bounce (its
     nearest hit)."""
 
     def __init__(self, module, name, span=None):
@@ -993,23 +992,23 @@ def sincos_test():
     return int(count[0]), int(count[1])
 
 
-def morton_vs_slot_order(PI, PS, call):
+def morton_vs_slot_order(PI, S, call):
     """The shared step's first culled launch made again two ways, from the
-    arguments `call` = (scene, SpectralRays, cfg) of
-    spectral.intersect_slots: in Morton order, scattered back (what the
-    step runs), and in slot order; (t, tri) of every live ray bitwise, the
+    arguments `call` = (scene, SpectralRays, cfg, cull frame) of its
+    step.intersect_bounce: in Morton order, scattered back (what the step
+    runs), and in slot order; (t, tri) of every live ray bitwise, the
     pairs each launch's mask keeps, and each launch's kernel time."""
-    from lightpycl_tpu_torch.tracer import step as S
-
-    scene, sr, cfg = call
-    t_m, tri_m = PS.intersect_slots(scene, sr, cfg)
-    t_s, tri_s = PI.intersect(scene, sr.o, sr.d, cfg, alive=sr.alive)
+    scene, sr, cfg, frame = call
+    _, t_m, tri_m = S.intersect_bounce(scene, sr, cfg, frame,
+                                       slot_order=True)
+    t_s, tri_s = PI.intersect(scene, sr.o, sr.d, cfg, alive=sr.alive,
+                              frame=frame)
     torch.cuda.synchronize()
     live = sr.alive
     t_bits = int(((t_m.view(torch.int32) != t_s.view(torch.int32))
                   & live).sum())
     tri_bits = int(((tri_m != tri_s) & live).sum())
-    perm = S.morton_permutation(scene, sr)
+    perm = S.morton_order(sr.o, sr.d, sr.alive, frame.lo, frame.hi)
     C, T = sr.o.shape[0], scene.wu.shape[0]
     out = {"rays": C, "live": int(live.sum()),
            "hits": int(((tri_s >= 0) & live).sum()), "triangles": T,
@@ -1020,7 +1019,7 @@ def morton_vs_slot_order(PI, PS, call):
         o, d, a = ((sr.o, sr.d, sr.alive) if idx is None else
                    (sr.o[idx].contiguous(), sr.d[idx].contiguous(),
                     sr.alive[idx]))
-        mask = PI.block_tile_mask(scene, o, d, cfg.max_ray_len, alive=a)
+        mask = PI.block_tile_mask(frame, o, d, cfg.max_ray_len, alive=a)
         n = kept_pairs(mask, C, T, PI.RAY_BLOCK, PI.TRI_TILE)
         out[f"kept_share_{name}"] = f"{n / (C * T):.5f}"
         out[f"kernel_ms_{name}"] = cuda_ms(
@@ -1048,6 +1047,7 @@ def spectral_phases(P, PI):
     film-stack kernel's row of the kernel table."""
     from lightpycl_tpu_torch import spectral as PS
     from lightpycl_tpu_torch.ops import film_stack as FS
+    from lightpycl_tpu_torch.tracer import step as S
 
     # ---- 19. shared geometry: spectral_bench's shape, unreduced ---------
     els = hr_window(P)
@@ -1068,7 +1068,7 @@ def spectral_phases(P, PI):
     spec()  # first use
     torch.cuda.reset_peak_memory_stats()
     with LaunchTap(PI, (0, 3)) as tap, \
-            CallTap(PS, "intersect_slots") as slots:
+            CallTap(S, "intersect_bounce") as slots:
         FS.film_stack_cuda.launches = 0
         res, brute_s, cull_s = counted(PI, spec)
         film_s = FS.film_stack_cuda.launches
@@ -1123,7 +1123,7 @@ def spectral_phases(P, PI):
         hold_to_plain(PI, "19", bounce, launch)
     T_s = tap.kept[0][0].wu.shape[0]
     del tap, launch, scene, lo, mask
-    morton = morton_vs_slot_order(PI, PS, slots.first[0])
+    morton = morton_vs_slot_order(PI, S, slots.first[0])
     del slots
     small = {b: spec(PHYS_CMP_RAYS, cull=False, backend=b)
              for b in ("cuda", "torch")}
@@ -2463,10 +2463,11 @@ def main():
     # first bounce, per ray, after undoing the Morton permutation
     scene_b = tr_b.scene
     rays = P.RayBatch.from_arrays(*bowl_src.sample(), device="cuda")
-    order = S.morton_permutation(scene_b, rays)
-    srt = rays.permuted(order)
+    frame_b = PI.cull_frame(scene_b)
+    order = S.morton_order(rays.o, rays.d, rays.alive, frame_b.lo,
+                           frame_b.hi)
     cfg_c = P.TraceConfig(cull=True)
-    t_c, i_c = PI.intersect(scene_b, srt.o, srt.d, cfg_c, alive=srt.alive)
+    srt, t_c, i_c = S.intersect_bounce(scene_b, rays, cfg_c, frame_b)
     t_b, i_b = PI.intersect(scene_b, rays.o, rays.d,
                             cfg_c.replace(cull=False))
     inv = torch.empty_like(order)
@@ -2476,7 +2477,7 @@ def main():
     # B2 vs its plain version (same mask) on the first 32 ray blocks
     nb = 32 * PI.RAY_BLOCK
     bargs = (scene_b.wu, scene_b.wv, scene_b.ww, 1e-4, 1e-6, 1e3)
-    mask = PI.block_tile_mask(scene_b, srt.o[:nb], srt.d[:nb], 1e3,
+    mask = PI.block_tile_mask(frame_b, srt.o[:nb], srt.d[:nb], 1e3,
                               alive=srt.alive[:nb])
     t2k, i2k = PI.nearest_hit_cuda(srt.o[:nb], srt.d[:nb], *bargs, mask=mask)
     t2p, i2p = PI.nearest_hit_torch(srt.o[:nb], srt.d[:nb], *bargs,
@@ -2486,7 +2487,7 @@ def main():
           "B2 bitwise equal to its plain version")
     fin = torch.isfinite(t2p)
     b2_err = float((t2k[fin] - t2p[fin]).abs().max()) if fin.any() else 0.0
-    full_mask = PI.block_tile_mask(scene_b, srt.o, srt.d, 1e3,
+    full_mask = PI.block_tile_mask(frame_b, srt.o, srt.d, 1e3,
                                    alive=srt.alive)
     kept = float(torch.cat([((full_mask >> k) & 1) for k in range(32)])
                  .sum()) / (-(-BENCH_RAYS // PI.RAY_BLOCK)
@@ -2531,11 +2532,12 @@ def main():
         t_k, i_k = PI.nearest_hit_cuda(eo, ed, *eargs)
         t_p, i_p = PI.nearest_hit_torch(eo, ed, *eargs)
         bo, bd = edge_rays(sc, EDGE_RAYS, seed=6, direction=(0, 0, -1))
-        order = S.morton_permutation(sc, types.SimpleNamespace(
-            o=bo, d=bd, alive=torch.ones(EDGE_RAYS, dtype=torch.bool,
-                                         device="cuda")))[:EDGE_CULL_RAYS]
+        frame = PI.cull_frame(sc)
+        order = S.morton_order(bo, bd, torch.ones(EDGE_RAYS, dtype=torch.bool,
+                                                  device="cuda"),
+                               frame.lo, frame.hi)[:EDGE_CULL_RAYS]
         co, cd = bo[order].contiguous(), bd[order].contiguous()
-        emask = PI.block_tile_mask(sc, co, cd, 1e3)
+        emask = PI.block_tile_mask(frame, co, cd, 1e3)
         tc_k, ic_k = PI.nearest_hit_cuda(co, cd, *eargs, mask=emask)
         tc_p, ic_p = PI.nearest_hit_torch(co, cd, *eargs, mask=emask)
         torch.cuda.synchronize()

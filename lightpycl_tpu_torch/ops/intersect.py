@@ -15,7 +15,8 @@ dispatch in lightpycl_tpu/tracer/step.py.
 * `cull_mask` / `pack_aabbs` are the reference's conservative (ray block x
   triangle tile) reachability mask in torch, at the kernel's own block
   shape (RAY_BLOCK rays, TRI_TILE triangles). Unlike the TPU kernel, the
-  mask lives in device memory, so it needs no ray chunking.
+  mask lives in device memory, so it needs no ray chunking. `cull_frame`
+  holds a scene's boxes for all the culled launches of a trace.
 
 Returns (t (C,) f32, tri (C,) i32); a miss gives (inf, -1).
 """
@@ -26,6 +27,8 @@ import ctypes
 
 import numpy as np
 import torch
+
+from typing import NamedTuple
 
 from lightpycl_tpu_torch.ops import _build
 from lightpycl_tpu_torch.utils.profiling import count, enabled, span
@@ -217,13 +220,18 @@ def nearest_hit(o, d, wu, wv, ww, eps, eps_b, t_max, mask=None,
 _BIG = 3.4e38
 
 
+def _valid_rows(scene):
+    """(T, 1) bool, False on padding / degenerate (all-zero plane) rows."""
+    return torch.any(scene.ww != 0.0, dim=1)[:, None]
+
+
 def pack_aabbs(scene, tri_tile: int = TRI_TILE):
     """Per-tile AABBs (n_tt, 3) lo/hi. Degenerate/padding triangles
     (all-zero plane row) contribute an empty box."""
     Tp = scene.wu.shape[0]
     K = tri_tile
     Tt = -(-Tp // K) * K
-    valid = torch.any(scene.ww != 0.0, dim=1)[:, None]
+    valid = _valid_rows(scene)
     v0, e1, e2 = scene.v0, scene.e1, scene.e2
     tri_lo = torch.minimum(v0, torch.minimum(v0 + e1, v0 + e2))
     tri_hi = torch.maximum(v0, torch.maximum(v0 + e1, v0 + e2))
@@ -326,12 +334,31 @@ def pack_mask_bits(m: torch.Tensor) -> torch.Tensor:
     return words.reshape(-1).to(torch.int32)
 
 
+class CullFrame(NamedTuple):
+    """A scene's constants for its culled launches: the box of the valid
+    triangles' v0 (the ray order's frame) and `pack_aabbs`' tile boxes."""
+
+    lo: torch.Tensor
+    hi: torch.Tensor
+    tile_lo: torch.Tensor
+    tile_hi: torch.Tensor
+
+
+def cull_frame(scene) -> CullFrame:
+    """The scene's CullFrame (padding rows would stretch the box to the
+    origin, so they stay out)."""
+    valid = _valid_rows(scene)
+    lo = torch.where(valid, scene.v0, _BIG).amin(dim=0)
+    hi = torch.where(valid, scene.v0, -_BIG).amax(dim=0)
+    return CullFrame(lo, hi, *pack_aabbs(scene, TRI_TILE))
+
+
 # --------------------------------------------------------------------------
 # Scene-level entry (reference: step.intersect / intersect_pallas)
 # --------------------------------------------------------------------------
 
-def block_tile_mask(scene, o, d, t_max, alive=None):
-    """The bit-packed cull mask of rays (o, d) over the scene at the
+def block_tile_mask(frame: CullFrame, o, d, t_max, alive=None):
+    """The bit-packed cull mask of rays (o, d) over the frame's tiles at the
     kernel's block shape (ray padding as in the reference: dead rays at
     the origin pointing along (1, 1, 1)). While a profiler records, counts
     the (ray block, triangle tile) pairs it keeps (`intersect.tiles_kept`)
@@ -343,22 +370,25 @@ def block_tile_mask(scene, o, d, t_max, alive=None):
                                       device=o.device)])
         d = torch.cat([d, torch.ones((pad, 3), dtype=d.dtype,
                                      device=d.device)])
-    lo, hi = pack_aabbs(scene, TRI_TILE)
-    reach = cull_mask(o, d, lo, hi, RAY_BLOCK, float(t_max), alive=alive)
+    reach = cull_mask(o, d, frame.tile_lo, frame.tile_hi, RAY_BLOCK,
+                      float(t_max), alive=alive)
     if enabled():
         count("intersect.tiles_kept", reach.sum())
         count("intersect.tiles", reach.numel())
     return pack_mask_bits(reach)
 
 
-def intersect(scene, o, d, cfg, alive=None):
+def intersect(scene, o, d, cfg, alive=None, frame: CullFrame | None = None):
     """Nearest hit of rays (o, d) over the scene with cfg's eps, eps_bary,
-    max_ray_len and backend; with cfg.cull the conservative mask skips
-    unreachable (ray block, triangle tile) pairs (identical results)."""
+    max_ray_len and backend; with cfg.cull the conservative mask over
+    `frame`'s tiles (built here when None) skips unreachable (ray block,
+    triangle tile) pairs (identical results)."""
     mask = None
     if cfg.cull:
         with span("step.cull_mask"):
-            mask = block_tile_mask(scene, o, d, cfg.max_ray_len, alive=alive)
+            if frame is None:
+                frame = cull_frame(scene)
+            mask = block_tile_mask(frame, o, d, cfg.max_ray_len, alive=alive)
     o, d = o.contiguous(), d.contiguous()
     if intersect.observer is not None:
         intersect.observer(scene, o, d, cfg, alive, mask)

@@ -35,7 +35,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
-from lightpycl_tpu_torch.ops.intersect import intersect
+from lightpycl_tpu_torch.ops.intersect import cull_frame
 from lightpycl_tpu_torch.parallel.distributed import all_reduce_packed, axis
 from lightpycl_tpu_torch.parallel.sharding import (RAY_AXIS, key_words,
                                                    make_mesh, reduce_state,
@@ -79,19 +79,6 @@ def place(scene: Scene, rays: RayBatch, mesh: DeviceMesh,
     return place_scene(scene, mesh), place_rays(rays, mesh, interleave)
 
 
-def _scene_box(scene: Scene, group):
-    """The global box of the valid triangles' v0 over every shard of the
-    "tris" axis: one MIN all-reduce of (lo, -hi). The octant-then-Morton
-    resort must permute identically on every "tris" rank, so it cannot use
-    the box of the shard it holds (step.morton_permutation)."""
-    valid = torch.any(scene.ww != 0.0, dim=1)[:, None]
-    lo = torch.where(valid, scene.v0, 3.4e38).amin(dim=0)
-    neg_hi = -torch.where(valid, scene.v0, -3.4e38).amax(dim=0)
-    lo, neg_hi = all_reduce_packed([lo, neg_hi], group,
-                                   op=dist.ReduceOp.MIN)
-    return lo, -neg_hi
-
-
 def _hit_attrs(scene: Scene, tri, my_tri: int, group):
     """Every step.gather_hit_attrs column at the global hits `tri` from the
     shard that owns each (misses: global triangle 0, from tris rank 0)."""
@@ -131,25 +118,22 @@ def trace_mesh2d(scene: Scene, rays: RayBatch, cfg: TraceConfig,
     emitted = torch.sum(torch.where(rays.alive, rays.power, 0.0))
     led = Ledger.start(emitted if book else 0.0, device=dev)
     offset = my_tri * scene.num_triangles_padded
+    frame = None
     if cfg.cull:
-        box_lo, box_hi = _scene_box(scene, g_tri)
+        # the resort must permute alike on every "tris" rank: the box over
+        # every shard (a MIN of (lo, -hi)); the tiles stay the shard's own
+        frame = cull_frame(scene)
+        lo, neg_hi = all_reduce_packed([frame.lo, -frame.hi], g_tri,
+                                       op=dist.ReduceOp.MIN)
+        frame = frame._replace(lo=lo, hi=-neg_hi)
     words = key_words(key) if cfg.needs_rng else ()
     for i in range(iterations):
         if not bool(rays.alive.any()):
             break  # the same rays, so the same decision, on every tris rank
         gen = (step_mod.make_generator(dev, *words, my_ray, i)
                if cfg.needs_rng else None)
-        if cfg.cull:
-            # per-bounce resort on the global box: octant, then Morton
-            # order of the origins at 20 bits a axis (step.morton_order: a
-            # dense beam under a wide box would share one 10-bit code per
-            # thousands of rays, and split children leave one point both
-            # ways): each ray block is a tight patch pointing one way, so
-            # each shard's own tile mask bites
-            rays = rays.permuted(step_mod.morton_order(
-                rays.o, rays.d, rays.alive, box_lo, box_hi))
-        t_loc, i_loc = intersect(scene, rays.o, rays.d, cfg,
-                                 alive=rays.alive)
+        rays, t_loc, i_loc = step_mod.intersect_bounce(scene, rays, cfg,
+                                                       frame)
         t, tri = nearest_over_tris(t_loc, i_loc, offset, g_tri)
         attrs = _hit_attrs(scene, tri, my_tri, g_tri)
         rays, det, led, _ = step_mod.finish_step(

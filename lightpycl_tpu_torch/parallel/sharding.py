@@ -197,12 +197,14 @@ def trace_multichip(scene: Scene, rays: RayBatch, cfg: TraceConfig,
         n_tris=scene.num_triangles_padded if cfg.flux_map else 0,
         time_bins=cfg.time_bins, device=dev)
     words = key_words(key) if cfg.needs_rng else ()
+    frame = step_mod.cull_frame(scene) if cfg.cull else None
     for i in range(iterations):
         if not bool(rays.alive.any()):
             break
         gen = (step_mod.make_generator(dev, *words, r, i) if cfg.needs_rng
                else None)
         rays, det, led, _ = step_mod.trace_step(scene, rays, det, led, cfg,
-                                                with_aux=False, gen=gen)
+                                                with_aux=False, gen=gen,
+                                                frame=frame)
     det, led = reduce_state(det, led, group)
     return rays, det, led

@@ -44,7 +44,7 @@ import torch
 from lightpycl_tpu_torch import physics
 from lightpycl_tpu_torch.materials import Material
 from lightpycl_tpu_torch.ops.film_stack import film_stack_reflectance
-from lightpycl_tpu_torch.ops.intersect import intersect
+from lightpycl_tpu_torch.ops.intersect import CullFrame, cull_frame
 from lightpycl_tpu_torch.parallel import sharding
 from lightpycl_tpu_torch.parallel.distributed import all_reduce_packed, axis
 from lightpycl_tpu_torch.tracer import step as step_mod
@@ -144,37 +144,19 @@ def _detector_zeros(scene: Scene, cfg: TraceConfig, n_detectors: int,
         time_bins=cfg.time_bins, device=device)
 
 
-def intersect_slots(scene: Scene, sr: SpectralRays, cfg: TraceConfig):
-    """(t, tri) of the bounce's rays in slot order. With cfg.cull the
-    kernel gets them by octant, then in the Morton order of their origins
-    (`step.morton_permutation`, the order the scalar step sorts its batch
-    into), so that each ray block is compact in origin and direction and
-    the cull mask keeps few (block, tile) pairs; (t, tri) are scattered
-    back to the slots. A ray's hit does not depend on its neighbours in
-    the launch, so this is the slot-order launch's result bit for bit."""
-    if not cfg.cull:
-        return intersect(scene, sr.o, sr.d, cfg, alive=sr.alive)
-    perm = step_mod.morton_permutation(scene, sr)
-    t_m, tri_m = intersect(scene, sr.o[perm], sr.d[perm], cfg,
-                           alive=sr.alive[perm])
-    t, tri = torch.empty_like(t_m), torch.empty_like(tri_m)
-    t[perm] = t_m
-    tri[perm] = tri_m
-    return t, tri
-
-
 def spectral_step(scene: Scene, sr: SpectralRays, det: DetectorState,
                   per_det, led: SpectralLedger, wavelengths,
-                  cfg: TraceConfig):
+                  cfg: TraceConfig, frame: Optional[CullFrame] = None):
     """One bounce of the wavelength-parallel trace: geometry as `shade`'s
     (the same physics helpers), power (C, W). `det` takes the row-total
     measured power through the scalar binning
     (`accumulate_detector_arrays`); `per_det` (D, W) keeps the full
     per-detector spectra. Rays stay in slot order (the slot order decides
     the top-k ties); only the culled launch runs in octant, then Morton
-    order (`intersect_slots`)."""
+    order (`step.intersect_bounce` over `frame`)."""
     C, W = sr.P.shape
-    t, tri = intersect_slots(scene, sr, cfg)
+    _, t, tri = step_mod.intersect_bounce(scene, sr, cfg, frame,
+                                          slot_order=True)
     # exact quadric surfaces are deterministic and achromatic: they merge
     # here as in the scalar step
     t, tri, quad_hit = step_mod.merge_analytic(scene, sr.o, sr.d, t, tri,
@@ -314,9 +296,10 @@ def trace_spectral_loop(scene: Scene, sr: SpectralRays, wavelengths,
     led = SpectralLedger(
         emitted=torch.sum(torch.where(sr.alive[:, None], sr.P, 0.0), dim=0),
         measured=z, absorbed=z, escaped=z, culled=z)
+    frame = cull_frame(scene) if cfg.cull else None
     for _ in range(iterations):
         sr, det, per_det, led = spectral_step(scene, sr, det, per_det, led,
-                                              wavelengths, cfg)
+                                              wavelengths, cfg, frame)
     return sr, det, per_det, led
 
 
@@ -398,6 +381,7 @@ def _dispersive_loop(scene: Scene, rays: RayBatch, wl_grid, cfg: TraceConfig,
     z = torch.zeros((W,), dtype=_F32, device=dev)
     led_w = Ledger(emitted=bin_by(rays.wavelength, live_power(rays)),
                    measured=z, absorbed=z, escaped=z, culled=z)
+    frame = cull_frame(scene) if cfg.cull else None
     for i in range(iterations):
         gen = None
         if uniforms is not None:
@@ -408,18 +392,9 @@ def _dispersive_loop(scene: Scene, rays: RayBatch, wl_grid, cfg: TraceConfig,
             un = (step_mod.draw_shade_uniforms(cfg, C, gen, dev)
                   if shade_rng else None)
             rr_u = None
-        if cfg.cull:
-            rays = step_mod.reorder_rays(scene, rays)
-        t, tri = intersect(scene, rays.o, rays.d, cfg, alive=rays.alive)
-        t, tri, quad_hit = step_mod.merge_analytic(scene, rays.o, rays.d, t,
-                                                   tri, cfg)
-        attrs = None
-        if quad_hit is not None:
-            use_q, nq = quad_hit
-            attrs = step_mod.default_hit_attrs(
-                scene, torch.clamp_min(tri, 0), cfg)
-            attrs["normal"] = torch.where(use_q[:, None], nq,
-                                          attrs["normal"])
+        rays, t, tri = step_mod.intersect_bounce(scene, rays, cfg, frame)
+        t, tri, attrs = step_mod.merge_analytic_attrs(scene, rays, t, tri,
+                                                      cfg)
         sh = step_mod.shade(scene, rays, t, tri, cfg, attrs=attrs,
                             uniforms=un)
         det = step_mod.accumulate_detector(det, sh, rays, cfg_det, tri=tri)

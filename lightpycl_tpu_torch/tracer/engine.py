@@ -1017,11 +1017,12 @@ class Tracer:
         harvested = []
         segments = []
         iters = 0
+        frame = step_mod.cull_frame(self.scene) if cfg.cull else None
         for it in range(cfg.trace_iterations):
             gen = (step_mod.make_generator(self.device, cfg.seed, it)
                    if cfg.needs_rng else None)
             rays, det, led, aux = step_mod.trace_step(
-                self.scene, rays, det, led, cfg, gen=gen)
+                self.scene, rays, det, led, cfg, gen=gen, frame=frame)
             iters += 1
             # one transfer of the per-step scalars
             counts = torch.stack([aux.measured_count, aux.live_count]).cpu()

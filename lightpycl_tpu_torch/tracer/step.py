@@ -5,7 +5,8 @@ the reference: C = ray capacity, children land in 2C slots (reflected child
 of ray i at slot i, refracted at C + i), compaction keeps C of them and
 books the rest as 'culled' so the conservation ledger stays exact.
 
-What is here: `morton_order` / `reorder_rays`, `gather_hit_attrs` /
+What is here: `morton_order` / `reorder_rays` / `intersect_bounce` (every
+culled launch), `gather_hit_attrs` /
 `default_hit_attrs` (base and optional columns), `nearest_t_rows`,
 `_relaunch_push`, `_shade_birefringent` and the whole of `shade`
 (Beer-Lambert attenuation, Cauchy dispersion, mirror / refractive /
@@ -14,7 +15,7 @@ thin-film coatings, reflection gratings, the Stokes-Mueller path with
 polarizers, waveplates and uniaxial crystals, Lambertian and rough-mirror
 scatter, volume scattering and fluorescence, gradient-index propagation
 with its sub-step loop, path signatures, the split and no-split child
-layouts), `merge_analytic` (exact quadric hits, ops/quadric.py),
+layouts), `merge_analytic(_attrs)` (exact quadric hits, ops/quadric.py),
 `accumulate_detector(_arrays)` with `image_flat_indices` and the optional
 maps (coherent field, time-of-flight histogram, per-facet flux), Russian
 `roulette`, `compact` (no-split, 'topk', 'stream'), `trace_step` (its
@@ -47,7 +48,8 @@ import torch
 from lightpycl_tpu_torch import physics
 from lightpycl_tpu_torch.materials import Material
 from lightpycl_tpu_torch.ops.film_stack import film_stack_reflectance
-from lightpycl_tpu_torch.ops.intersect import intersect, nearest_hit
+from lightpycl_tpu_torch.ops.intersect import (CullFrame, cull_frame,
+                                               intersect, nearest_hit)
 from lightpycl_tpu_torch.ops.quadric import intersect_quadrics
 from lightpycl_tpu_torch.sources import _frame
 from lightpycl_tpu_torch.tracer.config import TraceConfig
@@ -133,23 +135,44 @@ def morton_order(o, d, alive, lo, hi):
     return torch.argsort(key, stable=True)
 
 
-def morton_permutation(scene: Scene, rays) -> torch.Tensor:
-    """The slot permutation `reorder_rays` applies: octant, then Morton
-    order of the origins over the box of the scene's valid triangles
-    (padding rows would stretch the box to include the origin). `rays`:
-    anything with `o`, `d` and `alive` (a RayBatch,
-    spectral.SpectralRays)."""
-    valid = torch.any(scene.ww != 0.0, dim=1)[:, None]
-    lo = torch.where(valid, scene.v0, 3.4e38).amin(dim=0)
-    hi = torch.where(valid, scene.v0, -3.4e38).amax(dim=0)
-    return morton_order(rays.o, rays.d, rays.alive, lo, hi)
-
-
 def reorder_rays(scene: Scene, rays: RayBatch) -> RayBatch:
-    """Sort the batch by octant, then Morton order of the origins (ray
+    """Sort the batch by octant, then Morton order of the origins over the
+    box of the scene's valid triangles, as `intersect_bounce` does (ray
     order is semantically free: every downstream quantity is per-ray or a
     sum)."""
-    return rays.permuted(morton_permutation(scene, rays))
+    frame = cull_frame(scene)
+    return rays.permuted(morton_order(rays.o, rays.d, rays.alive, frame.lo,
+                                      frame.hi))
+
+
+def intersect_bounce(scene: Scene, rays, cfg: TraceConfig,
+                     frame: Optional[CullFrame] = None,
+                     slot_order: bool = False):
+    """A bounce's nearest hits: every culled launch is made here. With
+    cfg.cull the rays launch in `morton_order` over the box of `frame`
+    (the scene's `ops.intersect.cull_frame`, which each loop builds once a
+    trace; built here when None), masked by its tiles. Returns (rays, t,
+    tri), the batch in launch order; with slot_order (the shared spectral
+    step: its top-k ties follow the slots) the batch as given, its hits
+    scattered back to its slots, bit for bit the slot-order launch's."""
+    if not cfg.cull:
+        return (rays, *intersect(scene, rays.o, rays.d, cfg,
+                                 alive=rays.alive))
+    if frame is None:
+        frame = cull_frame(scene)
+    with span("step.reorder"):
+        order = morton_order(rays.o, rays.d, rays.alive, frame.lo, frame.hi)
+        if slot_order:
+            o, d, alive = rays.o[order], rays.d[order], rays.alive[order]
+        else:
+            rays = rays.permuted(order)
+            o, d, alive = rays.o, rays.d, rays.alive
+    t, tri = intersect(scene, o, d, cfg, alive=alive, frame=frame)
+    if slot_order:
+        t_s, tri_s = torch.empty_like(t), torch.empty_like(tri)
+        t_s[order], tri_s[order] = t, tri
+        return rays, t_s, tri_s
+    return rays, t, tri
 
 
 # --------------------------------------------------------------------------
@@ -1517,33 +1540,39 @@ def merge_analytic(scene: Scene, o, d, t, tri, cfg: TraceConfig):
             (use_q, nq))
 
 
+def merge_analytic_attrs(scene: Scene, rays: RayBatch, t, tri,
+                         cfg: TraceConfig):
+    """`merge_analytic` for a scalar bounce: (t, tri, attrs), attrs None
+    (shade gathers them) without analytic surfaces."""
+    t, tri, quad_hit = merge_analytic(scene, rays.o, rays.d, t, tri, cfg)
+    if quad_hit is None:
+        return t, tri, None
+    use_q, nq = quad_hit
+    attrs = default_hit_attrs(scene, torch.clamp_min(tri, 0), cfg)
+    attrs["normal"] = torch.where(use_q[:, None], nq, attrs["normal"])
+    return t, tri, attrs
+
+
 def trace_step(scene: Scene, rays: RayBatch, det: DetectorState, led: Ledger,
                cfg: TraceConfig, with_aux: bool = True,
                gen: torch.Generator | None = None,
                uniforms: Optional[ShadeUniforms] = None,
-               roulette_u: Optional[torch.Tensor] = None):
-    """One bounce: (reorder,) intersect, merge the exact quadric hits,
-    shade, measure, (roulette,) compact, ledger. `gen` is needed only when
-    cfg.needs_rng: it draws shade's uniforms (`draw_shade_uniforms`), then
-    the roulette uniforms. `uniforms` / `roulette_u` inject them instead
-    (tests feeding the reference's own draws). Returns (rays, det, led,
-    aux); aux is None when with_aux is False (the device loop, where the
-    reference's compiler drops it as dead code)."""
+               roulette_u: Optional[torch.Tensor] = None,
+               frame: Optional[CullFrame] = None):
+    """One bounce: (reorder,) intersect (`intersect_bounce` over `frame`),
+    merge the exact quadric hits, shade, measure, (roulette,) compact,
+    ledger. `gen` is needed only when cfg.needs_rng: it draws shade's
+    uniforms (`draw_shade_uniforms`), then the roulette uniforms.
+    `uniforms` / `roulette_u` inject them instead (tests feeding the
+    reference's own draws). Returns (rays, det, led, aux); aux is None when
+    with_aux is False (the device loop, where the reference's compiler
+    drops it as dead code)."""
     with span("step.bounce"):
-        if cfg.cull:
-            with span("step.reorder"):
-                rays = reorder_rays(scene, rays)
         if enabled():
             count("step.live_rays", rays.alive.sum())
             count("step.slots", rays.capacity)
-        t, tri = intersect(scene, rays.o, rays.d, cfg, alive=rays.alive)
-        t, tri, quad_hit = merge_analytic(scene, rays.o, rays.d, t, tri, cfg)
-        attrs = None
-        if quad_hit is not None:
-            use_q, nq = quad_hit
-            attrs = default_hit_attrs(scene, torch.clamp_min(tri, 0), cfg)
-            attrs["normal"] = torch.where(use_q[:, None], nq,
-                                          attrs["normal"])
+        rays, t, tri = intersect_bounce(scene, rays, cfg, frame)
+        t, tri, attrs = merge_analytic_attrs(scene, rays, t, tri, cfg)
         return finish_step(scene, rays, t, tri, attrs, det, led, cfg,
                            with_aux=with_aux, gen=gen, uniforms=uniforms,
                            roulette_u=roulette_u)
@@ -1616,11 +1645,12 @@ def trace_loop(scene: Scene, rays: RayBatch, det: DetectorState, led: Ledger,
     words = (cfg.seed,) if rng_words is None else tuple(rng_words)
     target = torch.tensor(cfg.dissipation_target, dtype=_F32,
                           device=led.emitted.device)
+    frame = cull_frame(scene) if cfg.cull else None
     i = 0
     while i < iterations and _short_of_target(led, target):
         gen = (make_generator(rays.device, *words, i) if cfg.needs_rng
                else None)
         rays, det, led, _ = trace_step(scene, rays, det, led, cfg,
-                                       with_aux=False, gen=gen)
+                                       with_aux=False, gen=gen, frame=frame)
         i += 1
     return rays, det, led, i

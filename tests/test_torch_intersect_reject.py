@@ -376,7 +376,8 @@ def test_kernel_on_edge_rays_bit_equal_on_card(cull):
         rs, _ = make()
         ps = PortScene.from_reference(rs, "cuda")
         o, d = edge_rays(ps, 4096, seed=7)
-        mask = (PI.block_tile_mask(ps, o, d, T_MAX) if cull else None)
+        mask = (PI.block_tile_mask(PI.cull_frame(ps), o, d, T_MAX)
+                if cull else None)
         args = (ps.wu, ps.wv, ps.ww, EPS, EPS_B, T_MAX)
         t1, i1 = PI.nearest_hit_cuda(o, d, *args, mask=mask)
         t0, i0 = PI.nearest_hit_torch(o, d, *args, mask=mask)

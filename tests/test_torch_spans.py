@@ -225,10 +225,11 @@ def octant_batch():
 def block_counts(scene, calls):
     """`intersect.blocks_live`, `intersect.blocks_mixed` over the masks of
     `calls` ((o, d, alive) each), built under the profiler."""
+    frame = PI.cull_frame(scene)
     PF.clear()
     with profile(activities=[ProfilerActivity.CPU]):
         for o, d, alive in calls:
-            PI.block_tile_mask(scene, o, d, 1e3, alive=alive)
+            PI.block_tile_mask(frame, o, d, 1e3, alive=alive)
     got = {c.name: c.value for c in PF.recorded().counts}
     PF.clear()
     return got["intersect.blocks_live"], got["intersect.blocks_mixed"]
@@ -240,7 +241,7 @@ def test_block_counters_on_a_crafted_batch(record):
     profiler records."""
     scene, _ = P.build_scene(elements(), device="cpu")
     o, d, alive = octant_batch()
-    PI.block_tile_mask(scene, o, d, 1e3, alive=alive)
+    PI.block_tile_mask(PI.cull_frame(scene), o, d, 1e3, alive=alive)
     assert PF.recorded() == PF.Record([], [], 0)
     assert block_counts(scene, [(o, d, alive)]) == (2, 1)
     # one ray short of three blocks: the padded slot is dead, and the

@@ -19,6 +19,7 @@ from lightpycl_tpu.tracer import step as R
 from lightpycl_tpu.tracer.engine import Tracer as RefTracer
 from lightpycl_tpu.tracer.rays import DetectorState as RefDet
 from lightpycl_tpu.tracer.rays import Ledger as RefLedger
+from lightpycl_tpu_torch.ops import intersect as PI
 from lightpycl_tpu_torch.tracer import step as S
 from lightpycl_tpu_torch.tracer.rays import DetectorState, Ledger, RayBatch
 from lightpycl_tpu_torch.tracer.scene import Scene
@@ -361,7 +362,8 @@ def test_morton_reorder_matches_reference():
     ref = R.reorder_rays(rs, rays)
     ps, pr = Scene.from_reference(rs, CPU), RayBatch.from_reference(rays, CPU)
     port = S.reorder_rays(ps, pr)
-    perm = S.morton_permutation(ps, pr)
+    frame = PI.cull_frame(ps)
+    perm = S.morton_order(pr.o, pr.d, pr.alive, frame.lo, frame.hi)
     valid = np.any(np.asarray(rs.ww) != 0.0, axis=1)[:, None]
     v0 = np.asarray(rs.v0)
     lo = np.where(valid, v0, np.float32(3.4e38)).min(axis=0)
@@ -391,12 +393,10 @@ def test_20bit_order_keeps_fewer_pairs_and_the_same_hits():
     segments) and 262,144 collimated rays in a 3.5-wide beam: over the
     dome's box a 10-bit code cell is ~0.2 across and holds about a
     thousand of the beam's origins, so 10-bit ray blocks are scattered
-    over a cell. In `morton_permutation`'s order each block is a tight
+    over a cell. In `intersect_bounce`'s order each block is a tight
     patch: the mask keeps clearly fewer (block, tile) pairs, and the
     culled first bounce stays equal to brute, per ray and bit for bit,
     once the order is undone."""
-    from lightpycl_tpu_torch.ops import intersect as PI
-
     n = 262_144
     els = [P.optical_elements(180, 90).parabolic_mirror(
                focus=1.0, diameter=4.0, reflectivity=0.95),
@@ -405,16 +405,15 @@ def test_20bit_order_keeps_fewer_pairs_and_the_same_hits():
     src = P.CollimatedSource(center=(0, 0, 5.0), direction=(0, 0, -1),
                              diameter=3.5, ray_count=n, power=1.0, seed=11)
     rays = RayBatch.from_arrays(*src.sample(), device=CPU)
-    valid = torch.any(scene.ww != 0.0, dim=1)[:, None]
-    lo = torch.where(valid, scene.v0, 3.4e38).amin(dim=0)
-    hi = torch.where(valid, scene.v0, -3.4e38).amax(dim=0)
+    frame = PI.cull_frame(scene)
+    lo, hi = frame.lo, frame.hi
 
     def kept(order):
-        words = PI.block_tile_mask(scene, rays.o[order], rays.d[order], 1e3,
+        words = PI.block_tile_mask(frame, rays.o[order], rays.d[order], 1e3,
                                    alive=rays.alive[order])
         return int(np.unpackbits(words.numpy().view(np.uint8)).sum())
 
-    perm = S.morton_permutation(scene, rays)
+    perm = S.morton_order(rays.o, rays.d, rays.alive, lo, hi)
     k20 = kept(perm)
     k10 = kept(torch.from_numpy(morton_order_np(
         rays.o.numpy(), None, rays.alive.numpy(), lo.numpy(), hi.numpy(),
@@ -425,10 +424,7 @@ def test_20bit_order_keeps_fewer_pairs_and_the_same_hits():
     # the culled launch in that order, undone, == brute on the slots (a
     # strided sample of them: brute over every ray would take minutes)
     cfg = P.TraceConfig(cull=True)
-    t_m, tri_m = PI.intersect(scene, rays.o[perm], rays.d[perm], cfg,
-                              alive=rays.alive[perm])
-    undo = torch.argsort(perm)
-    t, tri = t_m[undo], tri_m[undo]
+    _, t, tri = S.intersect_bounce(scene, rays, cfg, frame, slot_order=True)
     sample = torch.arange(0, n, 61)
     t_b, tri_b = PI.intersect(scene, rays.o[sample], rays.d[sample],
                               cfg.replace(cull=False))
@@ -452,7 +448,6 @@ def test_octant_order_parts_split_children_and_keeps_the_same_hits():
     order is undone."""
     from torch.profiler import ProfilerActivity, profile
 
-    from lightpycl_tpu_torch.ops import intersect as PI
     from lightpycl_tpu_torch.utils import profiling as PF
 
     n = 8192
@@ -470,9 +465,8 @@ def test_octant_order_parts_split_children_and_keeps_the_same_hits():
         scene, rays, DetectorState.zeros(36, 18, len(names), device=CPU),
         Ledger.start(1.0, CPU), cfg)
     assert int(rays.alive.sum()) == 2 * n
-    valid = torch.any(scene.ww != 0.0, dim=1)[:, None]
-    lo = torch.where(valid, scene.v0, 3.4e38).amin(dim=0)
-    hi = torch.where(valid, scene.v0, -3.4e38).amax(dim=0)
+    frame = PI.cull_frame(scene)
+    lo, hi = frame.lo, frame.hi
 
     def blocks(order):
         """(kept (block, tile) pairs, live blocks, mixed blocks), the
@@ -480,13 +474,13 @@ def test_octant_order_parts_split_children_and_keeps_the_same_hits():
         o, d, a = rays.o[order], rays.d[order], rays.alive[order]
         PF.clear()
         with profile(activities=[ProfilerActivity.CPU]):
-            words = PI.block_tile_mask(scene, o, d, 1e3, alive=a)
+            words = PI.block_tile_mask(frame, o, d, 1e3, alive=a)
         got = {c.name: int(c.value) for c in PF.recorded().counts}
         PF.clear()
         return (int(np.unpackbits(words.numpy().view(np.uint8)).sum()),
                 got["intersect.blocks_live"], got["intersect.blocks_mixed"])
 
-    perm = S.morton_permutation(scene, rays)
+    perm = S.morton_order(rays.o, rays.d, rays.alive, lo, hi)
     k_oct, live_oct, mixed_oct = blocks(perm)
     k_org, live_org, mixed_org = blocks(torch.from_numpy(morton_order_np(
         rays.o.numpy(), None, rays.alive.numpy(), lo.numpy(), hi.numpy())))
@@ -497,16 +491,89 @@ def test_octant_order_parts_split_children_and_keeps_the_same_hits():
     assert 0 < k_oct < 0.7 * k_org, (k_oct, k_org)
 
     # the culled launch in that order, undone, == brute on every live slot
-    t_m, tri_m = PI.intersect(scene, rays.o[perm], rays.d[perm], cfg,
-                              alive=rays.alive[perm])
-    undo = torch.argsort(perm)
-    t, tri = t_m[undo], tri_m[undo]
+    _, t, tri = S.intersect_bounce(scene, rays, cfg, frame, slot_order=True)
     a = rays.alive
     t_b, tri_b = PI.intersect(scene, rays.o[a], rays.d[a],
                               cfg.replace(cull=False))
     assert torch.equal(tri[a], tri_b)
     assert torch.equal(t[a].view(torch.int32), t_b.view(torch.int32))
     assert float((tri_b >= 0).float().mean()) > 0.99
+
+
+def lens_stack(center=(0.0, 0.0, 0.0), pad_to=256):
+    """Config 3's lens stack (two biconvex lenses in a radius-6 measuring
+    sphere) through the port's meshers at reduced segments, moved to
+    `center`, sorted for the cull, padded to a multiple of `pad_to`."""
+    oe_p = P.optical_elements(32, 12)
+    els = [oe_p.biconvex_lens(1.0, 0.8, 0.2, ior=1.5, name="l1"),
+           oe_p.biconvex_lens(1.5, 0.8, 0.15, ior=1.7, name="l2",
+                              center=(0, 0, 0.5)),
+           oe_p.sphere(6.0, material="measure", name="enclosure")]
+    for el in els:
+        el.translate(center)
+    return P.build_scene(els, pad_to=pad_to, spatial_sort=True, device=CPU)
+
+
+@pytest.mark.parametrize("center,pad_to", [((0.0, 0.0, 0.0), 256),
+                                           ((20.0, 30.0, 40.0), 1000)])
+def test_cull_frame_equals_the_per_launch_constants(center, pad_to):
+    """The frame a trace builds once holds, bit for bit, what every culled
+    launch built for itself before: the box of the valid triangles' v0
+    (the ray order's frame; padding rows left out, which the stack moved
+    off the origin shows) and `pack_aabbs`' tile boxes. At pad_to 1000
+    the last tiles hold only padding rows (empty boxes)."""
+    scene, _ = lens_stack(center, pad_to)
+    ww, v0 = scene.ww.numpy(), scene.v0.numpy()
+    valid = np.any(ww != 0.0, axis=1)[:, None]
+    assert not valid.all()  # padding rows
+    lo = np.where(valid, v0, np.float32(3.4e38)).min(axis=0)
+    hi = np.where(valid, v0, np.float32(-3.4e38)).max(axis=0)
+    frame = PI.cull_frame(scene)
+    tile_lo, tile_hi = PI.pack_aabbs(scene, PI.TRI_TILE)
+    for got, want in ((frame.lo, lo), (frame.hi, hi),
+                      (frame.tile_lo, tile_lo.numpy()),
+                      (frame.tile_hi, tile_hi.numpy())):
+        got = got.numpy()
+        assert got.dtype == np.float32 and got.shape == want.shape
+        assert np.array_equal(got.view(np.uint32), want.view(np.uint32))
+    if center[0]:
+        assert (frame.lo.numpy() > 10.0).all()
+        assert (frame.tile_lo[-1] > frame.tile_hi[-1]).all()
+
+
+def test_culled_trace_loop_builds_the_frame_once(monkeypatch):
+    """A culled 4-bounce `trace_loop` builds the scene's cull frame once,
+    before its first bounce, and launches every bounce with a mask from
+    it; a bounce called alone builds its own."""
+    scene, names = lens_stack()
+    n = 2048
+    src = P.CollimatedSource(center=(0, 0, -0.5), direction=(0, 0, 1),
+                             diameter=0.5, ray_count=n, power=1.0, seed=7)
+    rays = RayBatch.from_arrays(*src.sample(), capacity=4 * n, device=CPU)
+    cfg = P.TraceConfig(cull=True, dissipation_target=1.0)
+
+    def state():
+        return (DetectorState.zeros(36, 18, len(names), device=CPU),
+                Ledger.start(1.0, CPU))
+
+    calls, masks = [], []
+    build = PI.cull_frame
+
+    def counted(scene):
+        calls.append(scene)
+        return build(scene)
+
+    for mod in (PI, S):
+        monkeypatch.setattr(mod, "cull_frame", counted)
+    monkeypatch.setattr(PI.intersect, "observer",
+                        lambda sc, o, d, c, alive, mask: masks.append(mask))
+    _, _, _, iters = S.trace_loop(scene, rays, *state(), cfg, 4)
+    assert iters == 4 and len(calls) == 1
+    assert len(masks) == 4 and all(m is not None for m in masks)
+    S.trace_step(scene, rays, *state(), cfg)
+    assert len(calls) == 2
+    S.trace_loop(scene, rays, *state(), cfg.replace(cull=False), 2)
+    assert len(calls) == 2
 
 
 @pytest.mark.parametrize("name", ["config2", "materials"])

@@ -163,12 +163,12 @@ def test_cull_matches_brute():
     scene, _ = P.build_scene(els, spatial_sort=True, device=CPU)
     rays = P.RayBatch.from_arrays(*src.sample(), device=CPU)
     cfg = P.TraceConfig(cull=True)
-    sorted_rays = S.reorder_rays(scene, rays)
-    order = S.morton_permutation(scene, rays)
+    sorted_rays, t1, i1 = S.intersect_bounce(scene, rays, cfg)
+    frame = PI.cull_frame(scene)
+    order = S.morton_order(rays.o, rays.d, rays.alive, frame.lo, frame.hi)
     assert torch.equal(sorted_rays.o, rays.o[order])
+    assert torch.equal(S.reorder_rays(scene, rays).o, sorted_rays.o)
     assert not torch.equal(order, torch.arange(len(order)))
-    t1, i1 = PI.intersect(scene, sorted_rays.o, sorted_rays.d, cfg,
-                          alive=sorted_rays.alive)
     t0, i0 = PI.intersect(scene, rays.o, rays.d, cfg.replace(cull=False))
     inv = torch.empty_like(order)
     inv[order] = torch.arange(len(order))
