@@ -24,7 +24,9 @@ differentiable design on torch autograd (diff.py: the lensmaker and
 stigmatic-conic descents, the loss and gradient on the card against the
 CPU, a V-coat designed and traced), the sharded modes, and last the
 port's bench entry point (`python3 -m lightpycl_tpu_torch.bench`) in its
-own process, its line checked and its B1 rate held to phase 3's; it
+own process, its line checked and its B1 rate held to phase 3's, and the
+detector bincount kernel against its plain version at configs 3 and 4's
+sizes and on spectral columns; it
 holds every kernel against its plain
 torch version (the nearest-hit kernel and every epilogue variant also on
 rays built to sit on their reject margin, from edge_rays.py, and the
@@ -83,6 +85,10 @@ FILM_EDGE_RAYS = 1 << 16  # film stacks on the kernel's guards, per depth
 # the card's checks of the film-stack kernel's shortcuts (modulus test,
 # sincosf); chip_smoke alone builds and loads this library
 FILM_CHECKS_SRC = "film_stack_checks.cu"
+BINCOUNT_SRC = "lightpycl_tpu_torch/csrc/bincount.cu"
+# no TPU kernel: the reference's XLA scatter-add of the detector maps
+BINCOUNT_REPLACES = "lightpycl_tpu/tracer/step.py:1478"
+HIST_BINS = 36 * 18       # the histogram of configs 3 and 4
 TPU_MICRO = "benchmarks/micro_variants.py:173"
 TPU_EPILOGUE = "benchmarks/epilogue_variants.py:120"
 
@@ -2243,6 +2249,99 @@ def bench_phase(b1_tests_per_s):
     return out
 
 
+def bincount_inputs(n, n_bins, W=None, seed=0):
+    """Keys and values shaped like a bounce's detector sums: measured power
+    on a tenth of the slots (zero elsewhere, of mixed magnitude), 60% of
+    the slots in one bin, the rest spread over all of them; W columns of
+    values if W is given."""
+    rng = np.random.default_rng(seed)
+    idx = rng.integers(0, n_bins, n)
+    idx[rng.random(n) < 0.6] = n_bins // 3
+    shape = (n,) if W is None else (n, W)
+    v = rng.uniform(0, 1, shape) * 10.0 ** rng.integers(-7, 0, shape)
+    v[rng.random(n) >= 0.1] = 0.0
+    return (torch.from_numpy(idx.astype(np.int32)).cuda(),
+            torch.from_numpy(v.astype(np.float32)).cuda())
+
+
+def bincount_phase(main_path):
+    """Phase 28: the detector bincount kernel (csrc/bincount.cu) held bit for
+    bit to its plain version at config 3's and config 4's slots and bins
+    (the histogram, and the one detector that takes every slot) and on
+    spectral (n, W) inputs, twice each; then its card time beside its bound,
+    the plain version's and torch.bincount's (1-D cases; atomics, so not the
+    port's bits). `main_path` holds the kernel's launches in phases 10 and
+    11's traces. Returns the kernel table's row."""
+    from lightpycl_tpu_torch.ops import _build
+    from lightpycl_tpu_torch.ops import bincount as BC
+
+    for ptx in _build.ptxas_report("bincount.cu"):
+        if ptx.strip():
+            print(f"[28 ptxas] {ptx.strip()}", flush=True)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", ptx)
+        check(spill is None or spill.groups() == ("0", "0"),
+              "bincount kernels: no register spills")
+    cases = [("config3 hist", 800_000, HIST_BINS, None),
+             ("config3 detector", 800_000, 1, None),
+             ("config4 hist", 4_000_000, HIST_BINS, None),
+             ("config4 detector", 4_000_000, 1, None),
+             ("spectral per-detector", 524_288, 2, 32),
+             ("spectral columns", 524_288, 32, 4)]
+    launches0 = BC.bincount_sorted_cuda.launches
+    timing, worst = {}, 0.0
+    for name, n, n_bins, W in cases:
+        idx, v = bincount_inputs(n, n_bins, W, seed=n + n_bins)
+        k = BC.bincount_sorted(idx, v, n_bins)
+        again = BC.bincount_sorted(idx, v, n_bins)
+        plain = BC.bincount_sorted_torch(idx, v, n_bins)
+        torch.cuda.synchronize()
+        same = (torch.equal(k.view(torch.int32), plain.view(torch.int32))
+                and torch.equal(k.view(torch.int32),
+                                again.view(torch.int32)))
+        err = float((k.double() - plain.double()).abs().max())
+        worst = max(worst, err)
+        keys, order = torch.sort(idx, stable=True)
+        flat = v.reshape(n, -1).contiguous()
+        out = torch.empty_like(k)
+        kernel_ms = cuda_ms(lambda: BC._launch(keys, order, flat, out),
+                            reps=20)
+        call_ms = cuda_ms(lambda: BC.bincount_sorted(idx, v, n_bins),
+                          reps=20)
+        plain_ms = cuda_ms(lambda: BC.bincount_sorted_torch(idx, v, n_bins),
+                           reps=5)
+        library_ms = None if W else cuda_ms(
+            lambda: torch.bincount(idx, weights=v, minlength=n_bins),
+            reps=20)
+        b_ms = BC.bound_ms(n, n_bins, W or 1)
+        b_order_ms = BC.bound_ms(n, n_bins, W or 1, order_bytes=8)
+        timing[name] = dict(slots=n, bins=n_bins, W=W or 1, ms=kernel_ms,
+                            call_ms=call_ms, plain_ms=plain_ms,
+                            library_ms=library_ms, bound_ms=b_ms,
+                            bound_with_order_ms=b_order_ms, max_abs_err=err)
+        line(f"28 bincount {name}", slots=n, bins=n_bins, columns=W or 1,
+             bit_equal_to_plain=same, repeat_equal=same, max_abs_err=err,
+             kernel_ms=f"{kernel_ms:.4f}", call_ms=f"{call_ms:.4f}",
+             plain_ms=f"{plain_ms:.4f}", library_ms=library_ms,
+             bound_ms=f"{b_ms:.5f}", share_of_bound=f"{b_ms / kernel_ms:.4f}",
+             bound_with_order_ms=f"{b_order_ms:.5f}")
+        check(same, f"phase 28 {name}: kernel == plain version, bit for bit, "
+                    f"twice")
+    main = timing["config3 hist"]
+    return {"name": "bincount_sorted (detector maps)", "route": "cuda",
+            "source": BINCOUNT_SRC, "replaces": BINCOUNT_REPLACES,
+            "launches": main_path["launches"],
+            "launches_per_bounce": main_path["per_bounce"],
+            "launches_phase28": BC.bincount_sorted_cuda.launches - launches0,
+            "max_abs_err": worst, "ms": main["ms"],
+            "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+            "bound_with_order_ms": main["bound_with_order_ms"],
+            "bound_by": "bytes",
+            "share_of_bound": main["bound_ms"] / main["ms"],
+            "library_ms": main["library_ms"], "slots": main["slots"],
+            "bins": main["bins"], "main_path": main_path, "cases": timing}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2253,6 +2352,7 @@ def main():
     from edge_rays import edge_rays
     from lightpycl_tpu_torch.ops import _build
     from lightpycl_tpu_torch import variant_bench as VB
+    from lightpycl_tpu_torch.ops import bincount as BC
     from lightpycl_tpu_torch.ops import film_stack as FS
     from lightpycl_tpu_torch.ops import intersect as PI
     from lightpycl_tpu_torch.ops import intersect_variants as IV
@@ -2274,21 +2374,24 @@ def main():
         lib = load()
         return lib, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         builds = [pool.submit(timed, PI.load_kernel),
                   pool.submit(timed, IV.load_kernel),
                   pool.submit(timed, FS.load_kernel),
-                  pool.submit(timed, load_film_checks)]
+                  pool.submit(timed, load_film_checks),
+                  pool.submit(timed, BC.load_kernel)]
         lib, b1_build_s = builds[0].result()
         _, variants_build_s = builds[1].result()
         _, film_build_s = builds[2].result()
         _, checks_build_s = builds[3].result()
+        _, bincount_build_s = builds[4].result()
     build_s = time.perf_counter() - t0
     line("2 build", seconds=f"{build_s:.3f}",
          intersect_s=f"{b1_build_s:.3f}",
          variants_s=f"{variants_build_s:.3f}",
          film_stack_s=f"{film_build_s:.3f}",
          film_checks_s=f"{checks_build_s:.3f}",
+         bincount_s=f"{bincount_build_s:.3f}",
          film_stack_library=_build.library_path("film_stack.cu", {}).name,
          library=_build.library_path("intersect.cu", dict(PI._DEFINES)).name,
          variants_library=_build.library_path("intersect_variants.cu",
@@ -2611,10 +2714,14 @@ def main():
     torch.cuda.reset_peak_memory_stats()
     PI.nearest_hit_cuda.launches = 0
     PI.nearest_hit_cuda.cull_launches = 0
+    BC.bincount_sorted_cuda.launches = 0
     tr4, res4 = cfg4(CFG4_RAYS, None)
     torch.cuda.synchronize()
     launches4 = PI.nearest_hit_cuda.launches
     cull_launches4 = PI.nearest_hit_cuda.cull_launches
+    # the histogram and the per-detector totals: two sums a bounce
+    bincount4 = BC.bincount_sorted_cuda.launches
+    bounces4 = res4.rays_traced // CFG4_BATCH
     peak4 = torch.cuda.max_memory_allocated() / 2 ** 30
     torch.cuda.reset_peak_memory_stats()
     cfg4(CFG4_BATCH, None)
@@ -2629,6 +2736,8 @@ def main():
           "config 4 histogram sums to the measured power")
     check(np.isfinite(res4.detector_stderr("dome")),
           "config 4 per-batch standard error finite")
+    check(bounces4 > 0 and bincount4 >= 2 * bounces4,
+          "config 4: the bincount kernel took both sums of every bounce")
     check(peak4 <= 1.25 * warm_peak,
           "config 4 device memory does not grow from batch to batch")
     line("10 config4 100M", rays=CFG4_RAYS, batches=CFG4_RAYS // CFG4_BATCH,
@@ -2639,6 +2748,7 @@ def main():
          tests_per_s=f"{res4.intersection_tests / res4.wall_time:.4e}",
          rays_per_s=f"{CFG4_RAYS / res4.wall_time:.4e}",
          launches=launches4, cull_launches=cull_launches4,
+         bounces=bounces4, bincount_launches=bincount4,
          peak_mem_gib=f"{peak4:.3f}", one_batch_peak_mem_gib=f"{warm_peak:.3f}",
          warmup_batch_s=f"{warm_s:.3f}")
     # the culled kernel's work on config 4's two bounces: the rays and masks
@@ -2707,7 +2817,15 @@ def main():
                                         batch_size=batch, elements=cfg4_els,
                                         **args)
 
+    BC.bincount_sorted_cuda.launches = 0
     a = sem(4 * SEM_BATCH, SEM_BATCH)
+    torch.cuda.synchronize()
+    # a bounce's seven sums: histogram, per-detector totals, image, the
+    # coherent field's two planes, time histogram, flux map
+    bincount_sem = BC.bincount_sorted_cuda.launches
+    bounces_sem = a.rays_traced // SEM_BATCH
+    check(bounces_sem > 0 and bincount_sem >= 7 * bounces_sem,
+          "phase 11: the bincount kernel took every map of every bounce")
     check(a.power_conservation_error() <= 1e-5, "phase 11 ledger closes")
     check(same_batched(a, sem(4 * SEM_BATCH, SEM_BATCH)),
           "phase 11 (a): repeat run bit-identical")
@@ -2736,7 +2854,8 @@ def main():
          time_hist_peak_bin=int(a.time_hist.argmax()),
          repeat_equal=True, resume_equal=True, kernel_equals_plain=True,
          plain_rays=2 * SEM_CMP_BATCH, plain_wall_s=plain.wall_time,
-         kernel_wall_s=kern.wall_time)
+         kernel_wall_s=kern.wall_time, bounces=bounces_sem,
+         bincount_launches=bincount_sem)
 
     # ---- 12. where config 4's device time goes (one warm batch) ----------
     split4 = profile_trace(lambda: cfg4(CFG4_BATCH, None)[1], top=6)
@@ -2833,6 +2952,11 @@ def main():
     multi_brute, multi_cull = multi_device_phases(P, PI, smi)
     torch.cuda.empty_cache()
     bench = bench_phase(b1_tests_per_s)
+    bincount_row = bincount_phase({
+        "launches": bincount4, "bounces": bounces4,
+        "per_bounce": bincount4 / bounces4,
+        "maps_launches": bincount_sem, "maps_bounces": bounces_sem,
+        "maps_per_bounce": bincount_sem / bounces_sem})
     bench_cull = bench["cull_kernel_launches"]
     bench_brute = bench["kernel_launches"] - bench_cull
 
@@ -2869,7 +2993,7 @@ def main():
          "config4_bounces": cfg4_bounces,
          "rays": BENCH_RAYS, "plain_rays": nb,
          "triangles": scene_b.num_triangles_padded},
-    ] + v_entries + [film_row]}
+    ] + v_entries + [film_row, bincount_row]}
     print(json.dumps(table))
     print(smi)
     print(json.dumps({"ok": True, "device": {

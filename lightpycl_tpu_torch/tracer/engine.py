@@ -10,8 +10,8 @@ resolution of `_check_polarization`, `_check_flux_map`,
 `_check_time_bins`), `_package` and `get_surface_flux`.
 
   * 'device': the multi-bounce loop runs on the device with one host sync
-    per bounce (the early-exit test); detector histogram and ledger come
-    back, individual measured rays do not.
+    after each bounce but the last (the early-exit test); detector
+    histogram and ledger come back, individual measured rays do not.
   * 'host': the same steps, harvesting measured rays (and optionally ray
     segments) after every bounce: the reference's per-iteration semantics.
   * 'multichip': the rays shard over the "rays" axis of a torch DeviceMesh

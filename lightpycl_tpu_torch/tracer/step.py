@@ -24,21 +24,24 @@ trace calls after its own sharded intersect) with the measured-ray front
 compaction, and the device loop.
 
 Determinism: the detector scatter-adds are a sort-based segmented sum with
-a fixed association (`bincount_sorted`, no float atomics), so the same
-inputs give the same bits; top-k is a stable descending sort, so ties keep
-the lower slot first as jax.lax.top_k does. Random draws come from one
-torch.Generator per bounce, seeded from (cfg.seed[, batch], bounce) as the
-reference folds the bounce index into its key (`make_generator`), and are
-drawn in a fixed order: the streams of `draw_shade_uniforms` (free path,
-event kind, emission quantile, scatter direction, Lambertian direction,
-rough lobe; only those the cfg turns on), then the roulette uniforms. So a
-repeat, and a batched run resumed from a checkpoint, see the same numbers.
-`shade` and `roulette` take their uniforms as arguments; torch's streams
-are not JAX's, so the tests feed them JAX's own draws.
+a fixed association (`ops.bincount.bincount_sorted`: the plain scan on the
+CPU, a hand kernel with the same bits on the card; no float atomics, no
+host read), so the same inputs give the same bits; top-k is a stable
+descending sort, so ties keep the lower slot first as jax.lax.top_k does.
+Random draws come from one torch.Generator per bounce, seeded from
+(cfg.seed[, batch], bounce) as the reference folds the bounce index into
+its key (`make_generator`), and are drawn in a fixed order: the streams of
+`draw_shade_uniforms` (free path, event kind, emission quantile, scatter
+direction, Lambertian direction, rough lobe; only those the cfg turns on),
+then the roulette uniforms. So a repeat, and a batched run resumed from a
+checkpoint, see the same numbers. `shade` and `roulette` take their
+uniforms as arguments; torch's streams are not JAX's, so the tests feed
+them JAX's own draws.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -47,6 +50,7 @@ import torch
 
 from lightpycl_tpu_torch import physics
 from lightpycl_tpu_torch.materials import Material
+from lightpycl_tpu_torch.ops.bincount import bincount_sorted
 from lightpycl_tpu_torch.ops.film_stack import film_stack_reflectance
 from lightpycl_tpu_torch.ops.intersect import (CullFrame, cull_frame,
                                                intersect, nearest_hit)
@@ -1232,54 +1236,32 @@ def shade(scene: Scene, rays: RayBatch, t, tri, cfg: TraceConfig,
 # Detector accumulation
 # --------------------------------------------------------------------------
 
-def bincount_sorted(idx: torch.Tensor, vals: torch.Tensor, n_bins: int):
-    """Weighted bincount (n_bins, ...) of the rows of vals (n, ...) at idx
-    in [0, n_bins), deterministic on CPU and CUDA: a stable sort by bin,
-    then a segmented inclusive scan with a fixed (Hillis-Steele)
-    association, so every run adds the same numbers in the same order, with
-    no atomics; log2(n) elementwise passes. Each column of a 2-D vals sums
-    exactly as it would alone. (PyTorch's deterministic index_put_
-    accumulates each bin serially in one warp: 23 ms for 524,288 rays into
-    one detector bin on an H100.)"""
-    out = torch.zeros((n_bins,) + tuple(vals.shape[1:]), dtype=vals.dtype,
-                      device=vals.device)
-    n = idx.shape[0]
-    if n == 0:
-        return out
-    order = torch.argsort(idx, stable=True)
-    k, x = idx[order], vals[order]
-    head = torch.ones(n, dtype=torch.bool, device=idx.device)
-    head[1:] = k[1:] != k[:-1]
-    f, s = head, 1
-    row = (-1,) + (1,) * (vals.dim() - 1)
-    while s < n:
-        # (x, f)[i] <- (x, f)[i - s] (+) (x, f)[i]: a segment head keeps
-        # its own partial sum; otherwise the earlier partial is added first
-        x = torch.cat([x[:s], torch.where(f[s:].view(row), x[s:],
-                                          x[:-s] + x[s:])])
-        f = torch.cat([f[:s], f[s:] | f[:-s]])
-        s *= 2
-    last = torch.ones(n, dtype=torch.bool, device=idx.device)
-    last[:-1] = head[1:]
-    with span("step.sync"):  # the bins' count: a host read
-        at = last.nonzero().squeeze(1)
-    out[k[at].long()] = x[at]  # one write per bin
+@functools.lru_cache(maxsize=None)
+def _constant(values: tuple, shape: tuple, device: torch.device):
+    """`_on_device`'s tensor, made once for its values and device."""
+    out = torch.empty(shape, dtype=_F32, device=device)
+    flat = out.view(-1)
+    for i, v in enumerate(values):
+        flat[i].fill_(v)
     return out
 
 
-def _upload(values, device):
-    """A small float32 constant on `device`. On a card torch's copy from
-    pageable memory waits for the stream's queued work: a host wait, the
-    span `step.sync`."""
-    with span("step.sync"):
-        return torch.as_tensor(np.asarray(values, np.float32), device=device)
+def _on_device(values, device):
+    """A small float32 constant on `device` (not to be written to): made by
+    fills of Python floats the first time these values are asked for on
+    this device, each entry the float32 rounding of its value, as a copy of
+    the np.float32 array gives, but with no copy from pageable host memory,
+    which would wait for the stream's queued work; later calls return the
+    same tensor and launch nothing."""
+    a = np.asarray(values, np.float32)
+    return _constant(tuple(a.ravel().tolist()), a.shape, device)
 
 
 def image_flat_indices(hit_point, cfg: TraceConfig):
     """(C,) flat pixel index of each hit on the cfg image plane; points
     outside the grid map to the drop slot nb * nb."""
-    F = _upload(_frame(cfg.image_normal), hit_point.device)
-    rel = hit_point - _upload(cfg.image_center, hit_point.device)
+    F = _on_device(_frame(cfg.image_normal), hit_point.device)
+    rel = hit_point - _on_device(cfg.image_center, hit_point.device)
     # elementwise dot, as the reference
     x = torch.sum(rel * F[0], dim=1)
     y = torch.sum(rel * F[1], dim=1)
@@ -1310,8 +1292,8 @@ def accumulate_detector_arrays(det: DetectorState, hit_point, dirs,
     if cfg.hist_mode == "direction":
         v = dirs
     else:  # 'position': direction of the hit point seen from hist_center
-        v = physics.normalize(hit_point - _upload(cfg.hist_center,
-                                                  hit_point.device))
+        v = physics.normalize(hit_point - _on_device(cfg.hist_center,
+                                                     hit_point.device))
     az = torch.atan2(v[:, 1], v[:, 0])  # [-pi, pi)
     az = torch.where(az < 0, az + 2.0 * math.pi, az)
     pol = torch.arccos(torch.clamp(v[:, 2], -1.0, 1.0))
@@ -1627,30 +1609,50 @@ def finish_step(scene: Scene, rays: RayBatch, t, tri, attrs,
     return new_rays, det, led, aux
 
 
-def _short_of_target(led: Ledger, target) -> bool:
-    """The device loop's early-exit read, one host sync a bounce: is the
+def _short_of_target(led: Ledger, target) -> torch.Tensor:
+    """The device loop's early-exit test, left on the device: is the
     accounted power still below target x emitted?"""
+    return led.accounted() < target * led.emitted
+
+
+def _read(tests) -> list:
+    """The device loop's host read: the early-exit tests' values, all in
+    one sync."""
     with span("step.sync"):
-        return bool(led.accounted() < target * led.emitted)
+        count("step.host_reads", 1)
+        return torch.stack(tests).tolist()
 
 
 def trace_loop(scene: Scene, rays: RayBatch, det: DetectorState, led: Ledger,
                cfg: TraceConfig, iterations: int, rng_words=None):
-    """The whole fixed-depth trace, one host sync per bounce for the early
-    exit: stop once accounted power reaches cfg.dissipation_target of the
-    emitted power, compared in float32 as the reference's while_loop does,
-    so the bounce count matches. Bounce i draws from
-    make_generator(*rng_words, i) (rng_words defaults to (cfg.seed,)).
-    Returns (rays, det, led, iterations_run)."""
+    """The whole fixed-depth trace: stop once accounted power reaches
+    cfg.dissipation_target of the emitted power, compared in float32 as the
+    reference's while_loop does, so the bounce count matches. Bounce 0 runs
+    before its test is read, and that test is read with bounce 1's: one
+    host read after each bounce but the `iterations`-th. Should bounce
+    0's test fail (no power emitted, or a target of 0), the loop returns
+    the state it was given and 0 bounces, as the reference does. Bounce i
+    draws from make_generator(*rng_words, i) (rng_words defaults to
+    (cfg.seed,)). Returns (rays, det, led, iterations_run)."""
     words = (cfg.seed,) if rng_words is None else tuple(rng_words)
-    target = torch.tensor(cfg.dissipation_target, dtype=_F32,
-                          device=led.emitted.device)
+    target = _on_device(cfg.dissipation_target, led.emitted.device)
     frame = cull_frame(scene) if cfg.cull else None
-    i = 0
-    while i < iterations and _short_of_target(led, target):
+    start = (rays, det, led)
+    tests, i = [_short_of_target(led, target)], 0
+    while i < iterations:
         gen = (make_generator(rays.device, *words, i) if cfg.needs_rng
                else None)
         rays, det, led, _ = trace_step(scene, rays, det, led, cfg,
                                        with_aux=False, gen=gen, frame=frame)
         i += 1
+        if i < iterations:
+            tests.append(_short_of_target(led, target))
+        elif not tests:
+            break  # the last bounce, and nothing left to test
+        go = _read(tests)
+        if i == 1 and not go[0]:
+            return (*start, 0)  # bounce 0 was not to run
+        if i == iterations or not go[-1]:
+            break
+        tests = []
     return rays, det, led, i

@@ -43,14 +43,15 @@ what it drops.
         step.bounce
           step.reorder, step.cull_mask, step.nearest_hit, step.shade,
           step.accumulate, step.compact
-            step.sync (in step.accumulate: the detector's constant
-              uploads, bincount_sorted's index read)
             compact.topk (in step.compact, splitting scenes' top-k fit:
               the sort and the gather)
-        step.sync (the per-bounce early-exit read)
+        step.sync (the early-exit read, after each bounce but the last;
+          bounce 0's test is read with bounce 1's; counter step.host_reads,
+          one a read)
       parallel.all_reduce
 
-    step.sync is each host call that may wait on the device's queue.
+    step.sync is each host call of the step's path that may wait on the
+    device's queue, and step.host_reads counts them.
 """
 
 from __future__ import annotations
