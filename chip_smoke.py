@@ -25,8 +25,8 @@ stigmatic-conic descents, the loss and gradient on the card against the
 CPU, a V-coat designed and traced), the sharded modes, and last the
 port's bench entry point (`python3 -m lightpycl_tpu_torch.bench`) in its
 own process, its line checked and its B1 rate held to phase 3's, and the
-detector bincount kernel against its plain version at configs 3 and 4's
-sizes and on spectral columns; it
+detector bincount kernel against its plain version at configs 2, 3 and
+4's sizes and on spectral columns; it
 holds every kernel against its plain
 torch version (the nearest-hit kernel and every epilogue variant also on
 rays built to sit on their reject margin, from edge_rays.py, and the
@@ -47,6 +47,7 @@ Output: one line per phase; then the kernel table as JSON, the card's
 
 import ctypes
 import json
+import math
 import os
 import re
 import subprocess
@@ -89,6 +90,7 @@ BINCOUNT_SRC = "lightpycl_tpu_torch/csrc/bincount.cu"
 # no TPU kernel: the reference's XLA scatter-add of the detector maps
 BINCOUNT_REPLACES = "lightpycl_tpu/tracer/step.py:1478"
 HIST_BINS = 36 * 18       # the histogram of configs 3 and 4
+IMAGE_BINS = 128          # config 2's focal map: 128^2 pixels
 TPU_MICRO = "benchmarks/micro_variants.py:173"
 TPU_EPILOGUE = "benchmarks/epilogue_variants.py:120"
 
@@ -2264,10 +2266,37 @@ def bincount_inputs(n, n_bins, W=None, seed=0):
             torch.from_numpy(v.astype(np.float32)).cuda())
 
 
+def image_inputs(n, n_bins, W=None, seed=0):
+    """Keys and values shaped like a bounce of config 2's focal map into
+    n_bins = nb^2 + 1 bins, the last the drop bin: over half of the slots
+    fall outside the grid (one run of many chunks in the drop bin), a
+    third pile into the caustic's central pixels (runs longer than a
+    chunk), the rest spread over a central disc of a fourth of the grid's
+    width (most pixels stay empty); measured power on 40% of the slots
+    (zero elsewhere, of mixed magnitude), float32."""
+    rng = np.random.default_rng(seed)
+    nb = math.isqrt(n_bins - 1)
+    ix = rng.normal(nb / 2, 1.5, n)
+    iy = rng.normal(nb / 2, 1.5, n)
+    wide = np.flatnonzero(rng.random(n) < 0.3)
+    r = nb / 4 * np.sqrt(rng.random(len(wide)))
+    phi = rng.uniform(0, 2 * np.pi, len(wide))
+    ix[wide] = nb / 2 + r * np.cos(phi)
+    iy[wide] = nb / 2 + r * np.sin(phi)
+    idx = (np.clip(ix, 0, nb - 1).astype(np.int64) * nb
+           + np.clip(iy, 0, nb - 1).astype(np.int64))
+    idx[rng.random(n) < 0.55] = nb * nb
+    v = rng.uniform(0, 1, n) * 10.0 ** rng.integers(-7, 0, n)
+    v[rng.random(n) >= 0.4] = 0.0
+    return (torch.from_numpy(idx.astype(np.int32)).cuda(),
+            torch.from_numpy(v.astype(np.float32)).cuda())
+
+
 def bincount_phase(main_path):
     """Phase 28: the detector bincount kernel (csrc/bincount.cu) held bit for
     bit to its plain version at config 3's and config 4's slots and bins
-    (the histogram, and the one detector that takes every slot) and on
+    (the histogram, and the one detector that takes every slot), at config
+    2's focal map (more bins than a chunk has slots, `image_inputs`) and on
     spectral (n, W) inputs, twice each; then its card time beside its bound,
     the plain version's and torch.bincount's (1-D cases; atomics, so not the
     port's bits). `main_path` holds the kernel's launches in phases 10 and
@@ -2287,11 +2316,13 @@ def bincount_phase(main_path):
              ("config4 hist", 4_000_000, HIST_BINS, None),
              ("config4 detector", 4_000_000, 1, None),
              ("spectral per-detector", 524_288, 2, 32),
-             ("spectral columns", 524_288, 32, 4)]
+             ("spectral columns", 524_288, 32, 4),
+             ("config2 image", 1_000_000, IMAGE_BINS ** 2 + 1, None)]
     launches0 = BC.bincount_sorted_cuda.launches
     timing, worst = {}, 0.0
     for name, n, n_bins, W in cases:
-        idx, v = bincount_inputs(n, n_bins, W, seed=n + n_bins)
+        make = image_inputs if name == "config2 image" else bincount_inputs
+        idx, v = make(n, n_bins, W, seed=n + n_bins)
         k = BC.bincount_sorted(idx, v, n_bins)
         again = BC.bincount_sorted(idx, v, n_bins)
         plain = BC.bincount_sorted_torch(idx, v, n_bins)

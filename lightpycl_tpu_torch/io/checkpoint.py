@@ -5,10 +5,14 @@ Port counterpart of lightpycl_tpu/io/checkpoint.py: the same npz layout
 SCHEMA_VERSION, so either package reads a file the other wrote. Tensors are
 saved from wherever they lie; loaded state comes back as tensors on
 `device`. Older schemas are forward-filled, newer ones refused.
+Rows that grow with every batch (`write_row` / `read_rows`) live in a raw
+float64 side file beside the npz, so that a save writes one row, not all.
 """
 
 from __future__ import annotations
 
+import math
+import os
 from typing import Optional
 
 import numpy as np
@@ -32,6 +36,39 @@ def normalize_path(path: str) -> str:
     '.npz' when the suffix is missing — resume must check the same name)."""
     path = str(path)
     return path if path.endswith(".npz") else path + ".npz"
+
+
+def rows_path(path: str, name: str) -> str:
+    """The side file of checkpoint `path` that holds the rows `name`
+    (`run.npz` -> `run.<name>.f64`)."""
+    return normalize_path(path)[:-4] + f".{name}.f64"
+
+
+def write_row(path: str, name: str, index: int, row) -> None:
+    """Write row `index` of the side file `name` of checkpoint `path` (raw
+    float64, rows of one size) and cut the file after it: one row's bytes a
+    save, and a row left by a run that stopped before its npz was saved is
+    overwritten."""
+    side = rows_path(path, name)
+    data = np.ascontiguousarray(row, np.float64)
+    with open(side, "r+b" if os.path.exists(side) else "wb") as f:
+        f.seek(index * data.nbytes)
+        f.write(data.tobytes())
+        f.truncate()
+
+
+def read_rows(path: str, name: str, n: int,
+              shape: tuple) -> Optional[np.ndarray]:
+    """The first `n` rows, each of `shape`, of the side file `name` of
+    checkpoint `path`; None when the file holds fewer."""
+    side = rows_path(path, name)
+    if not os.path.exists(side):
+        return None
+    flat = np.fromfile(side, np.float64)
+    size = math.prod(shape)
+    if flat.size < n * size:
+        return None
+    return flat[:n * size].reshape((n,) + tuple(shape))
 
 
 def _host(v) -> np.ndarray:

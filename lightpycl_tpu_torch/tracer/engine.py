@@ -179,6 +179,11 @@ class TraceResult:
     # batch books the power still live at its end as culled. None when
     # resumed from a checkpoint that holds no such rows
     per_batch_ledger: Optional[np.ndarray] = None
+    # trace_batched runs with an image only: (B, nb, nb) float64 image of
+    # each batch, from the same readback (B x nb^2 float64 on the host).
+    # None without an image, and when resumed from a checkpoint that holds
+    # no such rows
+    per_batch_image: Optional[np.ndarray] = None
     device: str = ""              # torch device the trace ran on
 
     @property
@@ -602,7 +607,12 @@ class Tracer:
         the same bits as an uninterrupted one. `max_batches` stops after
         that many batches of this call. The result keeps each batch's own
         detector totals and ledger (`per_batch_detector`,
-        `per_batch_ledger`), from the readback the sums are made of.
+        `per_batch_ledger`) and, with an image, its image
+        (`per_batch_image`, B x nb^2 float64 on the host), from the
+        readback the sums are made of. The checkpoint keeps the image rows
+        in a side file beside it (`checkpoint.rows_path`), one row written
+        a batch, so a save costs one row's nb^2 x 8 bytes more, not B of
+        them.
         `capacity` (default batch_size) gives split-heavy scenes headroom,
         as in trace(capacity=...).
 
@@ -668,6 +678,9 @@ class Tracer:
         # (5,) ledger per completed batch; None once unknown (a resumed
         # checkpoint without them)
         per_batch_led: Optional[list] = []
+        # (nb, nb) image per completed batch; None without an image, or
+        # once unknown
+        per_batch_img: Optional[list] = [] if cfg.image_bins > 0 else None
         led64 = np.zeros(5)  # emitted, measured, absorbed, escaped, culled
         start_batch = 0
         if checkpoint_path is not None:
@@ -685,6 +698,14 @@ class Tracer:
                 per_batch_led = ([row for row in np.asarray(pbl)]
                                  if pbl is not None
                                  and len(pbl) == len(per_batch) else None)
+                n_img = extra.get("image_rows")
+                if per_batch_img is not None:
+                    rows = (None if n_img is None
+                            or int(n_img) != len(per_batch)
+                            else checkpoint.read_rows(
+                                checkpoint_path, "per_batch_image",
+                                len(per_batch), zeros.image.shape))
+                    per_batch_img = None if rows is None else list(rows)
                 led64 = np.asarray(extra["led64"])
                 start_batch = int(extra.get("next_batch", 0))
                 log.info("resuming batched trace at batch %d", start_batch)
@@ -717,11 +738,20 @@ class Tracer:
             per_batch.append(host[1])  # this batch's per_detector
             if per_batch_led is not None:
                 per_batch_led.append(host[-1])
+            if per_batch_img is not None:
+                per_batch_img.append(host[2].reshape(det_b.image.shape))
             led64[:] += host[-1]
             if checkpoint_path is not None:
                 if writes_checkpoint:
                     rows = ({} if per_batch_led is None else
                             {"per_batch_ledger": np.asarray(per_batch_led)})
+                    if per_batch_img is not None:
+                        # the image rows grow by nb^2 a batch: one row to
+                        # the side file, its count to the npz
+                        checkpoint.write_row(
+                            checkpoint_path, "per_batch_image",
+                            len(per_batch_img) - 1, per_batch_img[-1])
+                        rows["image_rows"] = len(per_batch_img)
                     checkpoint.save_state(
                         checkpoint_path, **{key: acc[f]
                                             for f, key in _CKPT_KEYS.items()},
@@ -789,6 +819,9 @@ class Tracer:
             per_batch_ledger=(np.asarray(per_batch_led)
                               if per_batch and per_batch_led is not None
                               else None),
+            per_batch_image=(np.asarray(per_batch_img)
+                             if per_batch and per_batch_img is not None
+                             else None),
             device=str(dev))
         self.last_result = result
         return result

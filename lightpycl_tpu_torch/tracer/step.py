@@ -1310,10 +1310,15 @@ def accumulate_detector_arrays(det: DetectorState, hit_point, dirs,
     image, image_amp = det.image, det.image_amp
     if cfg.image_bins > 0:
         nb = cfg.image_bins
-        # the extra bin nb * nb takes every hit outside the grid
-        flat_img = image_flat_indices(hit_point, cfg)
-        image = image + bincount_sorted(
-            flat_img, measured_power, nb * nb + 1)[:-1].reshape(nb, nb)
+        with span("step.image"):
+            # the extra bin nb * nb takes every hit outside the grid
+            flat_img = image_flat_indices(hit_point, cfg)
+            image = image + bincount_sorted(
+                flat_img, measured_power, nb * nb + 1)[:-1].reshape(nb, nb)
+        if enabled():
+            measured = measured_power > 0.0
+            count("image.measured", measured.sum())
+            count("image.inside", (measured & (flat_img < nb * nb)).sum())
         if cfg.coherent and opl is not None and wavelength is not None:
             re, im = coherent_amplitudes(measured_power, opl, wavelength)
             image_amp = image_amp + torch.stack([
@@ -1325,8 +1330,8 @@ def accumulate_detector_arrays(det: DetectorState, hit_point, dirs,
         # out-of-range arrivals clamp into the edge bins, so the histogram
         # total stays exactly the measured power
         nt = time_hist.shape[1]
-        span = max(cfg.opl_max - cfg.opl_min, 1e-30)
-        it = torch.clamp(((opl - cfg.opl_min) / span * nt).to(torch.int32),
+        width = max(cfg.opl_max - cfg.opl_min, 1e-30)
+        it = torch.clamp(((opl - cfg.opl_min) / width * nt).to(torch.int32),
                          0, nt - 1)
         time_hist = time_hist + bincount_sorted(
             did * nt + it, measured_power,

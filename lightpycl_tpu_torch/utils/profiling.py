@@ -37,12 +37,17 @@ what it drops.
                               compact.children, compact.kept (each top-k
                                 fit: live children above the cutoff that
                                 enter it, and those it keeps)
+                              image.measured, image.inside (each image
+                                map's update: slots with measured power,
+                                those whose pixel is inside the grid)
       engine.batch
         engine.assemble
         engine.readback
         step.bounce
           step.reorder, step.cull_mask, step.nearest_hit, step.shade,
           step.accumulate, step.compact
+            step.image (in step.accumulate, with an image map: the pixel
+              indices and the image's bincount)
             compact.topk (in step.compact, splitting scenes' top-k fit:
               the sort and the gather)
         step.sync (the early-exit read, after each bounce but the last;

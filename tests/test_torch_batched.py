@@ -179,8 +179,10 @@ def test_resume_from_a_reference_checkpoint(tmp_path):
     ref = runs(False)[0]
     for k, v in ref.ledger.items():
         assert resumed.ledger[k] == pytest.approx(v, rel=1e-5, abs=1e-7), k
-    # the reference's checkpoint holds no ledger rows for its batch
+    # the reference's checkpoint holds no ledger or image rows for its
+    # batch
     assert resumed.per_batch_ledger is None
+    assert resumed.per_batch_image is None
     for f in FIELDS:
         assert np.allclose(getattr(resumed, f), getattr(ref, f), rtol=1e-5,
                            atol=1e-7), f
@@ -277,3 +279,77 @@ def test_per_batch_ledger_resumes_bit_for_bit(tmp_path):
     assert np.array_equal(resumed.per_batch_detector,
                           full.per_batch_detector)
     assert resumed.ledger == full.ledger
+
+
+@pytest.mark.parametrize("run,kw", [
+    (port_run, {}),
+    (split_run, dict(image_bins=8, image_halfwidth=100.0))],
+    ids=["mirror_roulette", "splitting"])
+def test_per_batch_image_rows_sum_to_the_image(run, kw):
+    res = run(**kw)
+    rows = res.per_batch_image
+    nb = res.image.shape[0]
+    assert rows.shape == (4, nb, nb) and rows.dtype == np.float64
+    np.testing.assert_allclose(rows.sum(axis=0), res.image, rtol=1e-12,
+                               atol=1e-12 * res.ledger["emitted"])
+    # each batch's image holds its own measured power, and the batches
+    # differ
+    assert not np.array_equal(rows[0], rows[1])
+    np.testing.assert_allclose(rows.sum(axis=(1, 2)),
+                               res.per_batch_detector.sum(axis=1),
+                               rtol=1e-5)
+
+
+def test_per_batch_image_resumes_bit_for_bit(tmp_path):
+    full = port_run()
+    ck = str(tmp_path / "run")
+    first = port_run(checkpoint_path=ck, max_batches=2)
+    assert np.array_equal(first.per_batch_image, full.per_batch_image[:2])
+    # the rows sit in the side file, one 8^2 float64 row a batch, and the
+    # npz holds only their count
+    with np.load(tmp_path / "run.npz") as z:
+        assert "extra_per_batch_image" not in z
+        assert int(z["extra_image_rows"]) == 2
+    side = tmp_path / "run.per_batch_image.f64"
+    assert side.stat().st_size == 2 * 8 * 8 * 8
+    resumed = port_run(checkpoint_path=ck)
+    assert np.array_equal(resumed.per_batch_image, full.per_batch_image)
+    assert np.array_equal(resumed.image, full.image)
+    assert side.stat().st_size == 4 * 8 * 8 * 8
+
+
+def test_per_batch_image_resume_overwrites_a_row_left_unsaved(tmp_path):
+    # a run stopped after batch 1's row was written but before its npz:
+    # the side file holds a row more than the checkpoint counts
+    full = port_run()
+    ck = str(tmp_path / "run")
+    port_run(checkpoint_path=ck, max_batches=1)
+    side = tmp_path / "run.per_batch_image.f64"
+    with open(side, "ab") as f:
+        f.write(np.full(64, np.nan).tobytes())
+    resumed = port_run(checkpoint_path=ck)
+    assert np.array_equal(resumed.per_batch_image, full.per_batch_image)
+    assert side.stat().st_size == 4 * 8 * 8 * 8
+    # a side file short of the npz's count gives no rows, and the sums
+    # still resume
+    port_run(checkpoint_path=str(tmp_path / "cut"), max_batches=2)
+    short = tmp_path / "cut.per_batch_image.f64"
+    short.write_bytes(short.read_bytes()[:8 * 8 * 8])
+    cut = port_run(checkpoint_path=str(tmp_path / "cut"))
+    assert cut.per_batch_image is None
+    assert np.array_equal(cut.image, full.image)
+
+
+def test_per_batch_image_is_none_without_an_image(tmp_path):
+    ck = str(tmp_path / "run")
+    first = split_run(checkpoint_path=ck, max_batches=2)
+    assert first.per_batch_image is None
+    assert first.per_batch_ledger.shape == (2, 5)
+    with np.load(tmp_path / "run.npz") as z:
+        assert "extra_per_batch_ledger" in z
+        assert "extra_per_batch_image" not in z
+        assert "extra_image_rows" not in z
+    assert not (tmp_path / "run.per_batch_image.f64").exists()
+    resumed = split_run(checkpoint_path=ck)
+    assert resumed.per_batch_image is None
+    assert resumed.per_batch_ledger.shape == (4, 5)

@@ -7,8 +7,11 @@
 * A numpy mirror of csrc/bincount.cu's schedule (runs numbered from their
   last slot, chunks of 32-lane shuffle trees over groups and warps, the
   partials combined in rounds) against the same closed form, at the
-  kernel's chunk and at small chunks that reach the combine's rounds; so a
-  slip in the kernel's node rule shows here before the card.
+  kernel's chunk and at small chunks that reach the combine's rounds, and
+  over a focal map's 128^2 + 1 bins, more than a chunk's slots; and its
+  chunk slots' layout (each bin's chunks, an empty bin's zero too, one
+  slot each); so a slip in the kernel's node rule shows here before the
+  card.
 * The trace's host reads: a device-mode trace under the profiler reads the
   device once after each bounce but the last it may run
   (`step.host_reads`), bounce 0's early-exit test with bounce 1's; a loop
@@ -164,11 +167,28 @@ def case(name, rng):
         idx = rng.permutation(np.repeat([0, 1, 2, 3], [13, 20, 7, 24]))
         vals = np.where((idx % 2 == 0) | (rng.random(64) < 0.5), -0.0, 0.0)
         return idx, vals.astype(np.float32), 5
+    if name == "image_map":
+        # a 128^2 focal map's nb^2 + 1 bins, more than a kernel chunk has
+        # slots: half the slots in the drop bin (three chunks), a caustic
+        # pixel of more than a chunk, the rest in a central disc
+        nb = 128
+        n = 40_000
+        r = nb / 4 * np.sqrt(rng.random(n))
+        phi = rng.uniform(0, 2 * np.pi, n)
+        idx = ((nb // 2 + r * np.cos(phi)).astype(np.int64) * nb
+               + (nb // 2 + r * np.sin(phi)).astype(np.int64))
+        pick = rng.random(n)
+        idx[pick < 0.25] = nb // 2 * nb + nb // 2
+        idx[pick >= 0.5] = nb * nb
+        vals = _values(rng, n)
+        vals[rng.random(n) < 0.6] = 0.0
+        return rng.permutation(idx), vals, nb * nb + 1
     raise ValueError(name)
 
 
 CASES = ["run_lengths", "one_run", "empty_bins", "n_1", "columns",
-         "drop_bin_last_occupied", "signed_zeros", "out_of_range_keys"]
+         "drop_bin_last_occupied", "signed_zeros", "out_of_range_keys",
+         "image_map"]
 
 
 def bits(a):
@@ -199,6 +219,38 @@ def test_kernel_schedule_is_the_closed_form_bit_for_bit(name):
     idx, vals, n_bins = case(name, np.random.default_rng(26))
     np.testing.assert_array_equal(bits(kernel_mirror(idx, vals, n_bins)),
                                   bits(closed_form(idx, vals, n_bins)))
+
+
+def slot_layout(idx, n_bins, chunk=8192):
+    """csrc/bincount.cu's `runs_kernel` and the head of `chunks_kernel` in
+    numpy: the owner bin each chunk slot g reads, and the (bin, chunk) it
+    sums or None where the CTA returns at once."""
+    k = np.sort(idx)
+    slots = len(idx) // chunk + n_bins
+    owner = np.full(slots, -1)
+    a = np.searchsorted(k, np.arange(n_bins + 1))
+    for b in range(n_bins):
+        s0 = 0 if b == 0 else a[b] // chunk + b
+        s1 = slots if b + 1 == n_bins else a[b + 1] // chunk + b + 1
+        owner[s0:s1] = b
+    work = []
+    for g, b in enumerate(owner):
+        L = a[b + 1] - a[b]
+        c = g - (a[b] // chunk + b)
+        work.append((b, c) if 0 <= c < max(1, -(-L // chunk)) else None)
+    return owner, work, a
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_kernel_slot_layout_gives_each_chunk_one_slot(name):
+    idx, _, n_bins = case(name, np.random.default_rng(26))
+    owner, work, a = slot_layout(idx, n_bins)
+    # every slot has its owner written, and every chunk of every bin (an
+    # empty bin's zero too) has exactly one slot
+    assert (owner >= 0).all()
+    want = [(b, c) for b in range(n_bins)
+            for c in range(max(1, -(-(a[b + 1] - a[b]) // 8192)))]
+    assert sorted(w for w in work if w is not None) == want
 
 
 @pytest.mark.parametrize("groups,warps,n", [

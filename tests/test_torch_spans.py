@@ -377,3 +377,71 @@ def test_split_job_outputs_equal_with_recording_on_and_off(record):
     assert any(c.name == "compact.kept" for c in PF.recorded().counts)
     np.testing.assert_equal(outputs(on), outputs(off))
     np.testing.assert_array_equal(on.per_batch_ledger, off.per_batch_ledger)
+
+
+def image_job(**kw):
+    """The two-batch job of `batched` with a 16^2 image of the dome's hits
+    on the plane z = 0: half-width 30 leaves part of the dome outside."""
+    args = dict(image_bins=16, image_halfwidth=30.0)
+    args.update(kw)
+    return P.Tracer(device="cpu").trace_batched(
+        source(), total_rays=TOTAL, batch_size=BATCH, elements=elements(),
+        seed=5, **args)
+
+
+IMAGE_RECORD = ("image.measured", "image.inside")
+
+
+@pytest.mark.parametrize("bins", [16, 0])
+def test_image_span_and_counters_only_under_a_profiler(record, bins):
+    image_job(image_bins=bins)
+    assert PF.recorded() == PF.Record([], [], 0)
+    with profile(activities=[ProfilerActivity.CPU]):
+        res = image_job(image_bins=bins)
+    rec = PF.recorded()
+    names = {c.name for c in rec.counts}
+    images = [s for s in rec.spans if s.name == "step.image"]
+    if bins == 0:
+        assert not names & set(IMAGE_RECORD) and not images
+        return
+    assert names >= set(IMAGE_RECORD)
+    # one a bounce, inside its accumulate
+    assert len(images) == res.rays_traced // BATCH
+    assert all(rec.spans[s.parent].name == "step.accumulate"
+               for s in images)
+
+
+def test_image_counters_equal_the_steps_arrays(record, monkeypatch):
+    import lightpycl_tpu_torch.tracer.step as S
+
+    seen = []
+    orig = S.accumulate_detector_arrays
+
+    def watched(det, hit_point, dirs, measured_power, det_id, cfg, **kw):
+        measured = measured_power > 0.0
+        flat = S.image_flat_indices(hit_point, cfg)
+        seen.append((int(measured.sum()),
+                     int((measured & (flat < cfg.image_bins ** 2)).sum())))
+        return orig(det, hit_point, dirs, measured_power, det_id, cfg, **kw)
+
+    monkeypatch.setattr(S, "accumulate_detector_arrays", watched)
+    with profile(activities=[ProfilerActivity.CPU]):
+        image_job()
+    total = collections.Counter()
+    for c in PF.recorded().counts:
+        total[c.name] += c.value
+    assert total["image.measured"] == sum(m for m, _ in seen)
+    assert total["image.inside"] == sum(i for _, i in seen)
+    # part of the dome's hits fall outside the grid
+    assert 0 < total["image.inside"] < total["image.measured"]
+
+
+def test_image_job_outputs_equal_with_recording_on_and_off(record):
+    off = image_job()
+    with profile(activities=[ProfilerActivity.CPU]):
+        on = image_job()
+    assert any(c.name == "image.inside" for c in PF.recorded().counts)
+    np.testing.assert_equal(outputs(on), outputs(off))
+    np.testing.assert_array_equal(on.image, off.image)
+    np.testing.assert_array_equal(on.per_batch_image, off.per_batch_image)
+    np.testing.assert_array_equal(on.per_batch_ledger, off.per_batch_ledger)
